@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of ``repro`` (the JAX/Pallas reference package).
+
+Module names mirror the reference so each counterpart is easy to find:
+``core`` (relations, operator algebra, measures, Experiment), ``ir``
+(tokenizers, corpora, BM25, dense retrieval), ``models`` (the
+cross-encoder), ``caching.bucketing`` and ``kernels`` (hand-written
+Hopper kernels with their plain PyTorch versions).
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``
+(``device.resolve_device``).  This package never imports ``jax`` or
+``repro``.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

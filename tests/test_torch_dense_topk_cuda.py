@@ -1,0 +1,91 @@
+"""The hand-written CUDA ``dense_topk`` kernel against its plain PyTorch
+version, on the card.  Imports neither jax nor ``repro``, so it runs on
+a machine with only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_dense_topk_cuda.py
+
+Every test skips without a CUDA device."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.dense_topk import (dense_topk, dense_topk_op,
+                                            dense_topk_ref)
+from repro_torch.kernels.dense_topk.kernel import MAX_K
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+# (Q, N, d, k, dtype): the reference's sweep, then the limits: k at its
+# maximum, and a width whose shared memory passes the 48 KB default
+CASES = [
+    (8, 256, 32, 10, "float32"),
+    (5, 300, 33, 7, "float32"),
+    (16, 1024, 64, 100, "float32"),
+    (3, 130, 128, 130, "float32"),
+    (8, 512, 64, 16, "bfloat16"),
+    (1, 8, 16, 3, "float32"),
+    (4, 5000, 64, MAX_K, "float32"),
+    (2, 700, 9000, 50, "float32"),
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+NEAR_TIE = 1e-5    # the two sum in other orders: neighbours this close may swap
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(Q, N, d, k, dtype, device):
+    """Normal entries scaled by d**-0.25, so scores are O(1) at any d."""
+    rng = np.random.default_rng(Q * 131 + N + d + k)
+    scale = d ** -0.25
+    q = torch.from_numpy((rng.normal(size=(Q, d)) * scale).astype(np.float32))
+    c = torch.from_numpy((rng.normal(size=(N, d)) * scale).astype(np.float32))
+    dt = getattr(torch, dtype)
+    return q.to(device, dt), c.to(device, dt)
+
+
+@pytest.mark.parametrize("Q,N,d,k,dtype", CASES)
+def test_kernel_matches_plain_version(cuda, Q, N, d, k, dtype):
+    q, c = _inputs(Q, N, d, k, dtype, cuda)
+    before = dense_topk.launches
+    vals, idxs = dense_topk_op(q, c, k=k)
+    rv, ri = dense_topk_ref(q, c, k=k)
+    torch.cuda.synchronize()
+    assert dense_topk.launches == before + 1
+    rv, ri = rv.cpu().numpy(), ri.cpu().numpy()
+    np.testing.assert_allclose(vals.cpu().numpy(), rv, atol=TOL[dtype])
+    for r, j in zip(*np.nonzero(idxs.cpu().numpy() != ri)):
+        gaps = [abs(rv[r, j] - rv[r, jj]) for jj in (j - 1, j + 1)
+                if 0 <= jj < k]
+        assert gaps and min(gaps) < NEAR_TIE, (r, j)
+
+
+def test_duplicated_rows_put_the_lower_index_first(cuda):
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.normal(size=(4, 32)).astype(np.float32)).to(cuda)
+    base = torch.from_numpy(rng.normal(size=(20, 32)).astype(np.float32))
+    c = torch.cat([base, base]).to(cuda)         # every doc duplicated
+    _, idxs = dense_topk(q, c, k=40)
+    pos = idxs.cpu().argsort(dim=1)              # rank of each doc
+    assert bool((pos[:, :20] < pos[:, 20:]).all())
+
+
+def test_kernel_refuses_what_it_cannot_take(cuda):
+    q, c = _inputs(2, 64, 16, 4, "float32", cuda)
+    with pytest.raises(ValueError, match="k"):
+        dense_topk(q, c, k=65)                   # k > N
+    big = torch.zeros(MAX_K + 1, 16, device=cuda)
+    with pytest.raises(ValueError, match="k"):
+        dense_topk(q, big, k=MAX_K + 1)
+    with pytest.raises(TypeError, match="dtype"):
+        dense_topk(q, c.to(torch.bfloat16), k=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_topk(q, c.t().contiguous().t(), k=4)
+    with pytest.raises(ValueError, match="device"):
+        dense_topk_op(q, c.cpu(), k=4)

@@ -1,0 +1,68 @@
+"""repro_torch and chip_smoke.py stand alone: they import neither jax nor
+the reference package ``repro``."""
+import ast
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "repro")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    script = (
+        "import importlib, json, sys\n"
+        f"for name in {['repro_torch'] + _modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('jax', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_module_list_covers_the_slice():
+    mods = set(_modules())
+    for name in ("device", "core.frame", "core.pipeline", "core.measures",
+                 "core.experiment", "ir.tokenizer", "ir.corpus", "ir.index",
+                 "ir.dense", "models.common", "models.cross_encoder",
+                 "caching.bucketing", "kernels._build",
+                 "kernels.dense_topk.kernel", "kernels.dense_topk.ops",
+                 "kernels.dense_topk.ref"):
+        assert f"repro_torch.{name}" in mods
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "tools" / "torch_profile_main_path.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import_in_source(path):
+    assert not _imported_roots(path) & set(FORBIDDEN)
