@@ -1,4 +1,4 @@
-"""Declarative experiments (paper §2.2).
+"""Declarative experiments (paper §2.2) with prefix precomputation (§3).
 
 Counterpart of ``repro.core.experiment``.  ``Experiment(systems, topics,
 qrels, measures, ...)`` invokes each system on the topics, evaluates
@@ -6,9 +6,12 @@ with the requested measures, and (optionally) runs paired significance
 tests against a baseline with multiple-testing correction (Fuhr / Sakai
 guidance cited by the paper).
 
-Prefix precomputation (§3) needs the plan compiler, which this package
-ports in a later slice: ``precompute_prefix=True`` with more than one
-system raises rather than run the systems without sharing.
+``precompute_prefix=True`` enables the paper's §3 LCP precomputation;
+``precompute_mode="trie"`` enables the beyond-paper maximal-coverage
+trie (resolves the §6 ablation limitation).  Both run through the plan
+compiler (``core/plan.py``).  Planner-inserted caches (``cache_dir=``,
+``cache_backend=``, ``on_stale=``) arrive in a later slice of the port
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import numpy as np
 from .frame import ColFrame
 from .measures import evaluate, parse_measure
 from .pipeline import Transformer
+from .precompute import (PrecomputeStats, run_with_precompute,
+                         run_with_trie)
 
 __all__ = ["Experiment", "ExperimentResult"]
 
@@ -113,6 +118,7 @@ class ExperimentResult:
     corrected_pvalues: Dict[str, Dict[str, float]] = field(default_factory=dict)
     times_s: Dict[str, float] = field(default_factory=dict)
     total_time_s: float = 0.0
+    precompute: Optional[PrecomputeStats] = None
     results_frames: Optional[List[ColFrame]] = None
 
     def row(self, name: str) -> Dict[str, float]:
@@ -149,6 +155,13 @@ def Experiment(
     *,
     names: Optional[Sequence[str]] = None,
     precompute_prefix: bool = False,
+    precompute_mode: str = "lcp",          # "lcp" (§3) | "trie" | "plan"
+    cache_dir: Optional[str] = None,       # plan mode: not ported yet
+    cache_backend: Optional[str] = None,   # plan mode: not ported yet
+    on_stale: str = "error",               # plan mode: not ported yet
+    optimize: Any = "all",                 # plan mode: optimizer pass knob
+    n_shards: Optional[int] = None,        # plan mode: concurrent executor
+    max_workers: Optional[int] = None,
     baseline: Optional[int] = None,
     correction: str = "holm",
     batch_size: Optional[int] = None,
@@ -158,11 +171,21 @@ def Experiment(
     """Evaluate ``systems`` on ``topics`` against ``qrels``.
 
     Mirrors the paper's ``pt.Experiment`` signature: systems, topics
-    (type Q), qrels (type RA), measures; plus significance testing wrt.
-    ``baseline`` with multiple-testing ``correction`` (Fuhr/Sakai), and
-    ``batch_size``.  Each system runs on the topics on its own (the
-    paper's Table 2 setting (1)).  ``precompute_prefix=True`` with more
-    than one system raises ``NotImplementedError``.
+    (type Q), qrels (type RA), measures; plus ``precompute_prefix``
+    (§3), significance testing wrt. ``baseline`` with multiple-testing
+    ``correction`` (Fuhr/Sakai), and ``batch_size``.
+
+    ``precompute_mode`` selects the sharing strategy: ``"lcp"`` reports
+    the paper-§3 accounting, ``"trie"`` maximal prefix sharing, and
+    ``"plan"`` the full execution planner (``core/plan.py``), which
+    additionally shares through binary operator nodes; ``optimize``
+    selects its passes (``"all"`` / ``"none"`` / list of names — see
+    ``core/rewrite.py``).  In every mode ``n_shards`` / ``max_workers``
+    enable the concurrent sharded executor.  All three execute through
+    the planner; results are identical.  ``cache_dir``,
+    ``cache_backend`` and ``on_stale`` configure planner-inserted
+    caches, which the port does not have yet: setting any of them
+    raises ``NotImplementedError``.
     """
     topics = ColFrame.coerce(topics)
     qrels = ColFrame.coerce(qrels)
@@ -173,27 +196,55 @@ def Experiment(
     names = [str(n) for n in names]
     if len(names) != len(systems):
         raise ValueError("names must align with systems")
-    if precompute_prefix and len(systems) > 1:
+    if cache_dir is not None or cache_backend is not None \
+            or on_stale != "error":
         raise NotImplementedError(
-            "precompute_prefix=True needs the plan compiler (prefix "
-            "sharing across systems), which arrives with the "
-            "plan-compiler slice of repro_torch")
+            "Experiment(cache_dir=, cache_backend=, on_stale=): "
+            "planner-inserted caches arrive with the plan-inserted-caches "
+            "slice of repro_torch; wrap a stage in a cache by hand "
+            "(ScorerCache(path, stage)) meanwhile")
 
     t0 = time.perf_counter()
+    stats: Optional[PrecomputeStats] = None
     times: Dict[str, float] = {}
-    outs = []
-    for s, n in zip(systems, names):
-        ts = time.perf_counter()
-        if batch_size is None or len(topics) <= batch_size:
-            outs.append(s(topics))
+
+    if precompute_prefix and len(systems) > 1:
+        if precompute_mode == "plan":
+            from .plan import ExecutionPlan
+            with ExecutionPlan(systems, optimize=optimize) as plan:
+                outs, stats = plan.run(topics, batch_size=batch_size,
+                                       n_shards=n_shards,
+                                       max_workers=max_workers)
+        elif precompute_mode == "trie":
+            outs, stats = run_with_trie(systems, topics,
+                                        batch_size=batch_size,
+                                        n_shards=n_shards,
+                                        max_workers=max_workers)
+        elif precompute_mode == "lcp":
+            outs, stats = run_with_precompute(systems, topics,
+                                              batch_size=batch_size,
+                                              n_shards=n_shards,
+                                              max_workers=max_workers)
         else:
-            parts = [s(topics.take(range(lo, min(lo + batch_size,
-                                                 len(topics)))))
-                     for lo in range(0, len(topics), batch_size)]
-            outs.append(ColFrame.concat(parts))
-        times[n] = time.perf_counter() - ts
-        if verbose:
-            print(f"[experiment] {n}: {times[n]:.3f}s")
+            raise ValueError(f"unknown precompute_mode {precompute_mode!r}; "
+                             f"expected 'lcp', 'trie' or 'plan'")
+        # per-system times are not separable under sharing; record totals only
+        for n in names:
+            times[n] = float("nan")
+    else:
+        outs = []
+        for s, n in zip(systems, names):
+            ts = time.perf_counter()
+            if batch_size is None or len(topics) <= batch_size:
+                outs.append(s(topics))
+            else:
+                parts = [s(topics.take(range(lo, min(lo + batch_size,
+                                                     len(topics)))))
+                         for lo in range(0, len(topics), batch_size)]
+                outs.append(ColFrame.concat(parts))
+            times[n] = time.perf_counter() - ts
+            if verbose:
+                print(f"[experiment] {n}: {times[n]:.3f}s")
 
     per_query: Dict[str, Dict[str, Dict[str, float]]] = {}
     means: Dict[str, Dict[str, float]] = {}
@@ -207,7 +258,7 @@ def Experiment(
     result = ExperimentResult(
         names=names, measures=[m.name for m in measures], means=means,
         per_query=per_query, times_s=times,
-        total_time_s=time.perf_counter() - t0,
+        total_time_s=time.perf_counter() - t0, precompute=stats,
         results_frames=list(outs) if keep_results else None)
 
     if baseline is not None:

@@ -1,8 +1,6 @@
 """Declarative pipeline algebra (the paper's §2.1 operator language).
 
-Counterpart of ``repro.core.pipeline``.  The planner and optimizer that
-the comments below name (``core/plan.py``, ``core/rewrite.py``) are the
-reference package's; this package ports them in a later slice.
+Counterpart of ``repro.core.pipeline``.
 
 Transformers are relations→relations functions combined with operators:
 
@@ -217,15 +215,13 @@ class Transformer:
 
     # -- provenance (beyond paper: cache invalidation) -------------------
     def fingerprint(self) -> str:
-        """Stable provenance fingerprint of ``signature()`` and
-        ``fingerprint_extras()``.  The digest is computed by the
-        ``cachekey_hash`` kernel (``repro.caching.provenance``), which
-        this package ports together with the plan compiler and the
-        cache families; until then there is no fingerprint."""
-        raise NotImplementedError(
-            "Transformer.fingerprint() needs provenance and the "
-            "cachekey_hash kernel, which arrive with the plan-compiler "
-            "and cache slice of repro_torch")
+        """Stable provenance fingerprint (hex): class identity + config
+        (``signature()``) + ``fingerprint_extras()``, hashed by the
+        ``cachekey_hash`` kernel digest (``caching/provenance.py``).
+        Deterministic across processes; used by the cache manifests to
+        detect stale cache directories."""
+        from ..caching.provenance import transformer_fingerprint
+        return transformer_fingerprint(self)
 
     def fingerprint_extras(self) -> Tuple:
         """Extra provenance tokens folded into ``fingerprint()``.

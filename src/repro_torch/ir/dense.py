@@ -191,12 +191,14 @@ class DenseRetriever(Transformer):
                 self.num_results)
 
     def fingerprint_extras(self) -> Tuple:
-        """Corpus content + scoring backend: re-encoding the corpus or
-        switching the kernel path (whose reductions may round
-        differently) must invalidate caches even though the structural
-        ``signature()`` is unchanged."""
+        """Corpus content + scoring backend + encoder weight source:
+        re-encoding the corpus, switching the kernel path (whose
+        reductions may round differently) or changing the weights
+        (native seed vs bridged arrays) must invalidate caches even
+        though the structural ``signature()`` is unchanged."""
         return ("corpus", self.index.content_digest(),
-                "backend", self.backend)
+                "backend", self.backend,
+                "weights") + self.index.encoder.encoder.weight_source
 
     def with_cutoff(self, k: int) -> "DenseRetriever":
         """Absorb a downstream ``RankCutoff(k)`` into the retrieval

@@ -10,6 +10,7 @@ cannot reproduce the reference's ``jax.random`` bits.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -17,7 +18,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["ParamSpec", "init_params", "params_from_numpy", "rms_norm"]
+__all__ = ["ParamSpec", "init_params", "params_digest", "params_from_numpy",
+           "rms_norm"]
 
 
 @dataclass(frozen=True)
@@ -93,6 +95,18 @@ def params_from_numpy(tree: Dict, device: Union[str, torch.device]) -> Dict:
     return _unflatten(
         (path, torch.from_numpy(np.array(leaf, copy=True)).to(device))
         for path, leaf in _leaves(tree))
+
+
+def params_digest(tree: Dict) -> str:
+    """sha256 (hex) of a nested dict of arrays: every leaf's path, dtype,
+    shape and bytes in sorted-key order.  Names bridged weights in
+    provenance fingerprints."""
+    h = hashlib.sha256()
+    for path, leaf in _leaves(tree):
+        arr = np.ascontiguousarray(np.asarray(leaf))
+        h.update(repr((path, arr.dtype.str, arr.shape)).encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,7 +32,8 @@ from ..core.frame import ColFrame
 from ..core.pipeline import Transformer, add_ranks
 from ..device import resolve_device
 from ..ir.tokenizer import HashTokenizer
-from .common import ParamSpec, init_params, params_from_numpy, rms_norm
+from .common import (ParamSpec, init_params, params_digest,
+                     params_from_numpy, rms_norm)
 
 __all__ = ["EncoderConfig", "encoder_param_specs", "encoder_pooled",
            "encoder_score", "Encoder", "MonoScorer", "DuoScorer"]
@@ -134,8 +135,10 @@ class Encoder(nn.Module):
         if params is None:
             tree = init_params(encoder_param_specs(cfg),
                                torch.Generator().manual_seed(seed), dev)
+            self.weight_source: Tuple = ("torch.Generator", int(seed))
         else:
             tree = params_from_numpy(params, dev)
+            self.weight_source = ("numpy-sha256", params_digest(params))
         frozen = lambda d: nn.ParameterDict(      # noqa: E731
             {k: nn.Parameter(v, requires_grad=False) for k, v in d.items()})
         self.top = frozen({k: v for k, v in tree.items() if k != "layers"})
@@ -171,6 +174,11 @@ class _EncoderBase(Transformer):
             t = torch.from_numpy(tokens).to(self.encoder.device)
             out = encoder_score(self.encoder.tree, t, self.cfg)
             return out.cpu().numpy()
+
+    def fingerprint_extras(self) -> Tuple:
+        """The weight source (native seed, or the digest of bridged
+        weights): caches of this scorer never mix the two."""
+        return ("weights",) + self.encoder.weight_source
 
     def _score_pairs(self, queries, texts) -> np.ndarray:
         toks = np.stack([

@@ -11,8 +11,10 @@ import repro.models.cross_encoder as jce
 import repro_torch.core as tcore
 import repro_torch.ir as tir
 import repro_torch.models.cross_encoder as tce
+from repro_torch.caching.provenance import set_digest_device
 
 torch.set_num_threads(1)
+set_digest_device("cpu")
 
 # A config name of its own: the reference's process-wide compile cache
 # keys executables by (name, input shapes), not by weights, so another
@@ -93,9 +95,12 @@ def test_with_cutoff_is_prefix_and_fingerprint_extras(pair):
     assert fused.num_results == 7 and full.with_cutoff(80) is full
     assert fused(topics).to_dicts() == (full % 7)(topics).to_dicts()
     extras = full.fingerprint_extras()
-    assert extras[0] == "corpus" and extras[2:] == ("backend", "cuda")
+    assert extras[0] == "corpus" and extras[2:4] == ("backend", "cuda")
     assert extras[1] == tidx.content_digest()
-    with pytest.raises(NotImplementedError, match="cachekey_hash"):
-        full.fingerprint()
+    # bridged weights: the weight source is the arrays' digest
+    assert extras[4:6] == ("weights", "numpy-sha256")
+    fp = full.fingerprint()
+    assert len(fp) == 16 and fp == tir.DenseRetriever(tidx, 50).fingerprint()
+    assert tir.DenseRetriever(tidx, 50, backend="torch").fingerprint() != fp
     with pytest.raises(ValueError, match="backend"):
         tir.DenseRetriever(tidx, 5, backend="pallas")

@@ -105,10 +105,13 @@ def test_resolve_device(monkeypatch):
 
 
 def test_build_finds_sources_and_raises_without_nvcc(monkeypatch, tmp_path):
-    assert set(_build.sources()) == {"dense_topk"}
-    path = _build.library_path("dense_topk")
-    assert path.name.startswith("libdense_topk-") and path.suffix == ".so"
-    assert path == _build.library_path("dense_topk")     # keyed by content
+    assert set(_build.sources()) == {"dense_topk", "cachekey_hash"}
+    for name in _build.sources():
+        path = _build.library_path(name)
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+        assert path == _build.library_path(name)         # keyed by content
+    assert _build.library_path("dense_topk") != \
+        _build.library_path("cachekey_hash")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")

@@ -13,8 +13,10 @@ import repro.models.cross_encoder as jce
 import repro_torch.core as tcore
 import repro_torch.ir as tir
 import repro_torch.models.cross_encoder as tce
+from repro_torch.caching.provenance import set_digest_device
 
 torch.set_num_threads(1)
+set_digest_device("cpu")
 
 # A config name of its own: the reference's process-wide compile cache
 # keys executables by (name, input shapes), not by weights, so another
@@ -92,10 +94,18 @@ def test_pair_counts_and_significance_equal_reference(both):
 
 
 def test_precompute_prefix_raises_for_several_systems(both):
-    _, _, _, tsys, tc = both
-    with pytest.raises(NotImplementedError, match="plan-compiler"):
+    """Prefix precomputation over several systems runs through the plan
+    compiler with the unshared results; only planner-inserted caches
+    (``cache_dir=``) still raise."""
+    _, got, _, tsys, tc = both
+    res = tcore.Experiment(tsys[:2], tc.get_topics(), tc.get_qrels(),
+                           MEASURES, names=NAMES[:2], precompute_prefix=True)
+    assert res.precompute.nodes_executed < res.precompute.nodes_total
+    for n in NAMES[:2]:
+        assert res.means[n] == pytest.approx(got.means[n], abs=1e-12)
+    with pytest.raises(NotImplementedError, match="plan-inserted"):
         tcore.Experiment(tsys, tc.get_topics(), tc.get_qrels(), MEASURES,
-                         precompute_prefix=True)
+                         precompute_prefix=True, cache_dir="unused")
 
 
 def test_batch_size_and_single_system_precompute(both):

@@ -46,7 +46,13 @@ def test_module_list_covers_the_slice():
                  "ir.dense", "models.common", "models.cross_encoder",
                  "caching.bucketing", "kernels._build",
                  "kernels.dense_topk.kernel", "kernels.dense_topk.ops",
-                 "kernels.dense_topk.ref"):
+                 "kernels.dense_topk.ref", "core.ir", "core.rewrite",
+                 "core.cost", "core.executor", "core.precompute",
+                 "core.plan", "caching.provenance", "caching.auto",
+                 "caching.backends", "caching.economics",
+                 "caching.codecs", "caching.base", "caching.kv",
+                 "caching.scorer", "kernels.cachekey_hash.kernel",
+                 "kernels.cachekey_hash.ops", "kernels.cachekey_hash.ref"):
         assert f"repro_torch.{name}" in mods
 
 
