@@ -13,8 +13,14 @@ Phases, one output line or more each, the JSON result last:
    ``dense_topk`` at the reference's test shapes, a duplicated-rows tie
    case and the main path's shape; ``cachekey_hash`` on the
    reference's sweep, provenance rows and a wide batch, bit for bit,
-   and ``digest_bytes`` through it against the host FNV loop — with
-   timings;
+   and ``digest_bytes`` through it against the host FNV loop; then
+   ``flash_attention``, ``embedding_bag`` and ``bm25_block`` driven
+   through their ``*_op`` entry points at the reference's sweeps,
+   ``benchmarks/kernels_bench.py``'s shapes and the repo's model
+   shapes (smollm-360m's prefill and decode, MIND's serving batch),
+   and ``bm25_block`` over Table 2's 53 queries against
+   ``BM25Retriever.score_query`` — with timings, the plain version's
+   and the PyTorch library call's where there is one;
 4. main path: the retrieve-and-rerank Experiment with BM25 and dense
    retrieval over ``msmarco_like(2, scale=1.0)`` at the cross-encoder's
    full width, once on the kernel path and once on the plain
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -50,6 +57,7 @@ MEASURES = ["nDCG@10", "MAP"]
 NAMES = [f"bm25%{k}" for k in CUTS] + ["dense%200", "bm25|dense"]
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 # 32-bit integer xor/multiply: 64 per SM and clock, 132 SMs, 1.98 GHz
 INT32_OP_PER_S = 64 * 132 * 1.98e9
 NEAR_TIE = 1e-5
@@ -64,6 +72,52 @@ HASH_SWEEP = [(1, 1), (10, 7), (256, 16), (300, 64), (1, 64), (1, 4096),
               (65536, 64)]
 TABLE2_SETTINGS = [(False, None), (True, None), (True, "cold"),
                    (True, "hot")]
+# (label, B, H, K, Sq, Sk, hd, causal, dtype): the reference's
+# flash_attention sweep (tests/test_kernels.py FLASH_SWEEP), the shapes
+# of benchmarks/kernels_bench.py, then smollm-360m's heads
+# (configs/smollm_360m.py) at train_4k's length and a decode_32k step
+# (configs/base.py LM_SHAPES); the prefill is the main shape
+FLASH_ROWS = [("sweep", 1, 2, 2, 64, 64, 32, True, "float32"),
+              ("sweep", 2, 4, 2, 128, 128, 64, True, "float32"),
+              ("sweep", 1, 8, 1, 128, 128, 64, True, "float32"),
+              ("sweep", 2, 4, 4, 96, 96, 32, True, "float32"),
+              ("sweep", 1, 2, 2, 64, 256, 64, True, "float32"),
+              ("sweep", 1, 4, 2, 128, 128, 64, False, "float32"),
+              ("sweep", 1, 2, 2, 128, 128, 128, True, "bfloat16"),
+              ("kernels_bench", 1, 8, 2, 512, 512, 64, True, "float32"),
+              ("kernels_bench", 2, 8, 8, 1024, 1024, 64, True, "float32"),
+              ("smollm-360m prefill", 1, 15, 5, 4096, 4096, 64, True,
+               "bfloat16"),
+              ("smollm-360m decode", 128, 15, 5, 1, 32768, 64, True,
+               "bfloat16")]
+FLASH_MAIN = "smollm-360m prefill"
+# (label, V, d, B, L, weights, combiner, dtype): the reference's
+# embedding_bag sweep (EB_SWEEP), kernels_bench.py's shapes, then MIND's
+# table (configs/mind.py) at serve_p99's batch with hist_len bags and
+# 0/1 history weights, the main shape
+EB_ROWS = [("sweep", 64, 32, 4, 5, "random", "sum", "float32"),
+           ("sweep", 128, 48, 8, 3, None, "sum", "float32"),
+           ("sweep", 1000, 64, 16, 10, "random", "mean", "float32"),
+           ("sweep", 64, 128, 2, 7, "random", "sum", "bfloat16"),
+           ("sweep", 32, 16, 1, 1, None, "mean", "float32"),
+           ("kernels_bench", 100_000, 64, 4096, 10, None, "sum", "float32"),
+           ("kernels_bench", 1_000_000, 64, 1024, 20, None, "sum",
+            "float32"),
+           ("MIND serve_p99", 1_000_000, 64, 512, 50, "0/1", "mean",
+            "float32")]
+EB_MAIN = "MIND serve_p99"
+# (label, T, D, poisson rate of tf): the reference's bm25_block sweep
+# and kernels_bench.py's tile; Table 2's queries follow
+BM25_ROWS = [("sweep", 8, 128, 0.3), ("sweep", 20, 150, 0.3),
+             ("sweep", 64, 512, 0.3), ("sweep", 5, 40, 0.3),
+             ("kernels_bench", 64, 8192, 0.2)]
+# (rtol, atol) of |kernel - plain| <= atol + rtol * |plain|: both compute
+# in fp32, so bf16 outputs differ by at most one rounding of the output,
+# 2**-7 of its size; the smollm rows also show that a kernel skipping one
+# tile of 64 keys would fail it
+TOL_FLASH = {"float32": (0.0, 2e-5), "bfloat16": (2 ** -7, 1e-4)}
+TOL_BAG = {"float32": 1e-5, "bfloat16": 6e-2}
+TOL_BM25 = 1e-4
 
 
 def log(msg: str) -> None:
@@ -156,14 +210,19 @@ def setup_main_path(torch) -> SimpleNamespace:
                            mono=mono, duo=duo, run=run)
 
 
+def bound(n_bytes: float, n_ops: float, op_rate: float):
+    """(bound ms, what bounds it): the larger of the bytes over the HBM
+    rate and the operations over ``op_rate``."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / op_rate
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
 def hash_bound(n: int, L: int):
     """(bound ms, what bounds it) of cachekey_hash on [n, L] tokens:
     each token read once and each [n, 2] lane pair written once, against
     an xor and a multiply per byte and lane (16 per token)."""
-    t_bytes = (4 * n * L + 8 * n) / HBM_BYTES_PER_S
-    t_ops = 16 * n * L / INT32_OP_PER_S
-    return 1e3 * max(t_bytes, t_ops), \
-        "bytes" if t_bytes >= t_ops else "operations"
+    return bound(4 * n * L + 8 * n, 16 * n * L, INT32_OP_PER_S)
 
 
 def check_cachekey_hash(torch, card: str) -> dict:
@@ -228,6 +287,290 @@ def check_cachekey_hash(torch, card: str) -> dict:
         f"{(time.perf_counter() - t) / 200 * 1e6:.1f} us per call, host "
         f"clock, mean of 200; {card}")
     return timed
+
+
+def kernel_wrappers() -> dict:
+    from repro_torch.kernels.bm25_block import bm25_block
+    from repro_torch.kernels.cachekey_hash import cachekey_hash
+    from repro_torch.kernels.dense_topk import dense_topk
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.flash_attention import flash_attention
+    return {"dense_topk": dense_topk, "cachekey_hash": cachekey_hash,
+            "flash_attention": flash_attention,
+            "embedding_bag": embedding_bag, "bm25_block": bm25_block}
+
+
+def driven(torch, fn, name: str, expect: int):
+    """(``fn()``, launches of kernel ``name`` in it), with every kernel's
+    launch count set to 0 just before and read just after; raises unless
+    ``name`` launched ``expect`` times and no other kernel launched."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    if counts != {n: expect if n == name else 0 for n in wrappers}:
+        raise AssertionError(f"{name}: launches {counts}, expected {expect} "
+                             f"of {name} and none of the others")
+    return out, counts[name]
+
+
+def flash_bound(B, H, K, Sq, Sk, hd, causal, dtype):
+    """q, k, v read once and the output written once, against the two
+    products' 4*hd flops for each (query, key) pair the mask keeps."""
+    pairs = sum(min(Sk, max(0, i + Sk - Sq + 1)) for i in range(Sq)) \
+        if causal else Sq * Sk
+    elt = 4 if dtype == "float32" else 2
+    n_bytes = elt * (2 * B * H * Sq * hd + 2 * B * K * Sk * hd)
+    rate = FP32_FLOP_PER_S if dtype == "float32" else BF16_FLOP_PER_S
+    return bound(n_bytes, 4 * B * H * hd * pairs, rate)
+
+
+def flash_within(got, want, dt):
+    """(max abs err, largest share of the tolerance used, elements
+    beyond it) of ``got`` against ``want`` under TOL_FLASH[dt]."""
+    rtol, atol = TOL_FLASH[dt]
+    diff = (got.float() - want.float()).abs()
+    share = diff / (atol + rtol * want.float().abs())
+    return float(diff.max()), float(share.max()), int((share > 1).sum())
+
+
+def attention_skipping_tile(torch, q, k, v, causal, lo):
+    """The plain version with keys [lo, lo + 64) masked for every row:
+    what a kernel that skipped that K/V tile would return."""
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    s = torch.einsum("bkgqh,bksh->bkgqs",
+                     q.float().reshape(B, K, H // K, Sq, hd), k.float())
+    j = torch.arange(Sk, device=q.device)[None, :]
+    keep = (j < lo) | (j >= lo + 64)
+    if causal:
+        keep = keep & (j <= torch.arange(Sq, device=q.device)[:, None]
+                       + (Sk - Sq))
+    p = torch.softmax((s / math.sqrt(hd)).masked_fill(~keep, float("-inf")),
+                      dim=-1)
+    return torch.einsum("bkgqs,bksh->bkgqh", p, v.float()) \
+        .reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def check_flash_attention(torch, card: str) -> dict:
+    """flash_attention_op at FLASH_ROWS against the plain version, with
+    the kernel, plain and SDPA times.  Returns the main row's entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_op)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    entry = None
+    for label, B, H, K, Sq, Sk, hd, causal, dt in FLASH_ROWS:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=dtype)
+                   for s in ((B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd)))
+        got, n = driven(torch, lambda: flash_attention_op(q, k, v,
+                                                          causal=causal),
+                        "flash_attention", 1)
+        want = attention_ref(q, k, v, causal=causal)
+        err, share, beyond = flash_within(got, want, dt)
+        if beyond:
+            raise AssertionError(f"flash_attention {label} "
+                                 f"{(B, H, K, Sq, Sk, hd)} {dt}: {beyond} "
+                                 f"elements beyond (rtol, atol) "
+                                 f"{TOL_FLASH[dt]}, max_abs_err {err}")
+        if label.startswith("smollm"):
+            lo = Sk // 2 // 64 * 64
+            d_err, d_share, d_beyond = flash_within(
+                attention_skipping_tile(torch, q, k, v, causal, lo),
+                want, dt)
+            if not d_beyond:
+                raise AssertionError(f"flash_attention {label}: the "
+                                     f"tolerance passes an output that "
+                                     f"skips keys [{lo}, {lo + 64})")
+            log(f"kernels: flash_attention {label}: skipping keys [{lo}, "
+                f"{lo + 64}) would fail the tolerance at {d_beyond} of "
+                f"{want.numel()} elements (max_abs_err {d_err:.3g}, "
+                f"{d_share:.3g}x the tolerance); the kernel used "
+                f"{share:.3g}x of it")
+        del got, want
+        # SDPA's causal mask is aligned top-left: is_causal only where
+        # Sq = Sk; an explicit mask where Sq < Sk and some key is masked
+        keep = (torch.arange(Sk, device="cuda")[None, :]
+                <= torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq))
+        mask = keep if causal and Sq != Sk and not bool(keep.all()) \
+            else None
+        is_causal = causal and Sq == Sk
+        ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=causal))
+        plain_ms = time_ms(torch, lambda: attention_ref(q, k, v,
+                                                        causal=causal))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True))
+        bound_ms, bound_by = flash_bound(B, H, K, Sq, Sk, hd, causal, dt)
+        log(f"kernels: flash_attention {label} B={B} H={H} K={K} Sq={Sq} "
+            f"Sk={Sk} hd={hd} {'causal' if causal else 'full'} {dt}: "
+            f"max_abs_err {err:.3g} ((rtol, atol) {TOL_FLASH[dt]}, "
+            f"{share:.3g}x used), {n} launch; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
+            f"ms (yardstick only), bound {bound_ms * 1e3:.4f} us "
+            f"({bound_by}); {card}")
+        if label == FLASH_MAIN:
+            entry = {"launches": n, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms}
+        del q, k, v
+    torch.cuda.empty_cache()
+    return entry
+
+
+def check_embedding_bag(torch, card: str) -> dict:
+    """embedding_bag_op at EB_ROWS against the plain version, with the
+    kernel, plain and ``F.embedding_bag`` times (the kernel and the
+    library call both compute the weighted sum; the mean combiner is
+    the op's division after it).  Returns the main row's entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_op,
+                                                   embedding_bag_ref)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tables, entry = {}, None
+    for label, V, d, B, L, weights, combiner, dt in EB_ROWS:
+        dtype = getattr(torch, dt)
+        if (V, d, dt) not in tables:
+            tables = {(V, d, dt): torch.randn(V, d, generator=gen,
+                                              device="cuda", dtype=dtype)}
+        tab = tables[(V, d, dt)]
+        ids = torch.randint(0, V, (B, L), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        if weights == "random":
+            w = torch.rand(B, L, generator=gen, device="cuda", dtype=dtype)
+        elif weights == "0/1":           # the first n of L history slots
+            n = torch.randint(1, L + 1, (B, 1), generator=gen, device="cuda")
+            w = (torch.arange(L, device="cuda")[None, :] < n).to(dtype)
+        else:
+            w = None
+        got, n = driven(torch, lambda: embedding_bag_op(tab, ids, w,
+                                                        combiner=combiner),
+                        "embedding_bag", 1)
+        want = embedding_bag_ref(tab, ids, w, combiner)
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= TOL_BAG[dt]:
+            raise AssertionError(f"embedding_bag {label} {(V, d, B, L)} {dt}: "
+                                 f"max_abs_err {err} > {TOL_BAG[dt]}")
+        ids64 = ids.long()
+        ms = time_ms(torch, lambda: embedding_bag(tab, ids, w))
+        plain_ms = time_ms(torch, lambda: embedding_bag_ref(tab, ids, w))
+        library_ms = time_ms(torch, lambda: F.embedding_bag(
+            ids64, tab, mode="sum", per_sample_weights=w))
+        # the rows this run's ids touch, read once
+        rows = int(torch.unique(ids).numel())
+        elt = tab.element_size()
+        n_bytes = elt * (rows * d + B * d) + 4 * B * L \
+            + (elt * B * L if w is not None else 0)
+        bound_ms, bound_by = bound(n_bytes, 2 * B * L * d, FP32_FLOP_PER_S)
+        log(f"kernels: embedding_bag {label} V={V} d={d} B={B} L={L} "
+            f"weights={weights} {combiner} {dt}: max_abs_err {err:.3g} (tol "
+            f"{TOL_BAG[dt]}), {n} launch; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, F.embedding_bag(sum) {library_ms:.4f} ms "
+            f"(yardstick only), bound {bound_ms * 1e3:.4f} us ({bound_by}, "
+            f"{rows} distinct rows); {card}")
+        if label == EB_MAIN:
+            entry = {"launches": n, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms}
+    del tables
+    torch.cuda.empty_cache()
+    return entry
+
+
+def bm25_bound(tiles):
+    """Each tile read once (tf, idf, doc_len) and its scores written
+    once, against 5 flops for each nonzero tf (add, multiply, divide,
+    multiply-add) and 4 for each doc's length norm."""
+    n_bytes = sum(4 * (tf.numel() + idf.numel() + 2 * dl.numel())
+                  for tf, idf, dl in tiles)
+    n_ops = sum(5 * int((tf > 0).sum()) + 4 * dl.numel()
+                for tf, idf, dl in tiles)
+    return bound(n_bytes, n_ops, FP32_FLOP_PER_S)
+
+
+def check_bm25_block(torch, card: str, mp) -> dict:
+    """bm25_block_op at BM25_ROWS against the plain version, then over
+    Table 2's queries against ``BM25Retriever.score_query``: one tile
+    per query, a row per query term found in the index (repeated terms
+    kept, as the host loop adds them twice), every doc a column.
+    Returns the Table 2 entry (all queries, one launch each)."""
+    import numpy as np
+
+    from repro_torch.kernels.bm25_block import (bm25_block, bm25_block_op,
+                                                bm25_block_ref)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for label, T, D, rate in BM25_ROWS:
+        tile = (torch.poisson(torch.full((T, D), rate, device="cuda"),
+                              generator=gen),
+                torch.rand(T, generator=gen, device="cuda") * 5,
+                torch.randint(20, 100, (D,), generator=gen,
+                              device="cuda").float())
+        got, n = driven(torch, lambda: bm25_block_op(*tile, avg_dl=55.0),
+                        "bm25_block", 1)
+        err = float((got - bm25_block_ref(*tile, avg_dl=55.0)).abs().max())
+        if not err <= TOL_BM25:
+            raise AssertionError(f"bm25_block {label} {(T, D)}: max_abs_err "
+                                 f"{err} > {TOL_BM25}")
+        ms = time_ms(torch, lambda: bm25_block(*tile, avg_dl=55.0))
+        plain_ms = time_ms(torch, lambda: bm25_block_ref(*tile, avg_dl=55.0))
+        bound_ms, bound_by = bm25_bound([tile])
+        log(f"kernels: bm25_block {label} T={T} D={D}: max_abs_err "
+            f"{err:.3g} (tol {TOL_BM25}), {n} launch; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, no library call, bound "
+            f"{bound_ms * 1e3:.4f} us ({bound_by}); {card}")
+
+    index, queries = mp.index, mp.topics["query"].tolist()
+    bm25 = index.bm25()
+    dl = torch.from_numpy(index.doc_len).to("cuda")
+    tiles = []
+    for query in queries:
+        terms = [t for t in index.tokenizer.tokenize(query)
+                 if t in index.postings]
+        tf = np.zeros((len(terms), index.n_docs), np.float32)
+        for ti, t in enumerate(terms):
+            ids, tfs = index.postings[t]
+            tf[ti, ids] = tfs
+        idf = np.array([index.idf(t) for t in terms], np.float32)
+        tiles.append((torch.from_numpy(tf).to("cuda"),
+                      torch.from_numpy(idf).to("cuda"), dl))
+    kw = dict(k1=bm25.k1, b=bm25.b, avg_dl=index.avg_dl)
+    outs, n = driven(torch, lambda: [bm25_block_op(*t, **kw)
+                                     for t in tiles],
+                     "bm25_block", len(queries))
+    err, worst_rel = 0.0, 0.0
+    for query, tile, got in zip(queries, tiles, outs):
+        err = max(err, float((got - bm25_block_ref(*tile, **kw))
+                             .abs().max()))
+        ids, scores = bm25.score_query(query)
+        at = got.cpu().numpy()[ids]
+        np.testing.assert_allclose(at, scores, rtol=1e-4)
+        if len(ids):
+            worst_rel = max(worst_rel, float(np.max(
+                np.abs(at - scores) / np.abs(scores))))
+    if not err <= TOL_BM25:
+        raise AssertionError(f"bm25_block Table 2: max_abs_err {err} > "
+                             f"{TOL_BM25}")
+    ms = time_ms(torch, lambda: [bm25_block(*t, **kw) for t in tiles])
+    plain_ms = time_ms(torch, lambda: [bm25_block_ref(*t, **kw)
+                                       for t in tiles])
+    bound_ms, bound_by = bm25_bound(tiles)
+    rows = [t[0].shape[0] for t in tiles]
+    log(f"kernels: bm25_block Table 2: {len(queries)} queries over "
+        f"{index.n_docs} docs, {min(rows)}-{max(rows)} terms each, "
+        f"{n} launches; score_query reproduced at its ids "
+        f"(largest relative difference {worst_rel:.3g}, rtol 1e-4); "
+        f"max_abs_err {err:.3g} against the plain version; all queries: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, "
+        f"bound {bound_ms * 1e3:.4f} us ({bound_by}); {card}")
+    return {"launches": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def run_table2(torch, mp) -> dict:
@@ -432,16 +775,19 @@ def main() -> int:
                                                    k_main, dim=1))
     n_bytes = (Q * d + N * d) * 4 + Q * k_main * 8
     n_flop = 2 * Q * N * d
-    bound_ms = 1e3 * max(n_bytes / HBM_BYTES_PER_S,
-                         n_flop / FP32_FLOP_PER_S)
-    bound_by = "bytes" if n_bytes / HBM_BYTES_PER_S >= \
-        n_flop / FP32_FLOP_PER_S else "operations"
+    bound_ms, bound_by = bound(n_bytes, n_flop, FP32_FLOP_PER_S)
     log(f"kernels: dense_topk main shape Q={Q} N={N} d={d} k={k_main}: "
         f"max_abs_err {err_main:.3g}, near-tie ranks {near}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk(q @ c.T) "
         f"{library_ms:.4f} ms (yardstick only), bound "
         f"{bound_ms * 1e3:.2f} us ({bound_by}); {card}")
     hash_timed = check_cachekey_hash(torch, card)
+    t = time.perf_counter()
+    flash_entry = check_flash_attention(torch, card)
+    bag_entry = check_embedding_bag(torch, card)
+    bm25_entry = check_bm25_block(torch, card, mp)
+    log(f"kernels: flash_attention, embedding_bag and bm25_block rows in "
+        f"{time.perf_counter() - t:.1f} s")
 
     # -- 4. the main path ---------------------------------------------------
     dense_topk.launches = 0
@@ -505,7 +851,21 @@ def main() -> int:
         "replaces": "src/repro/kernels/cachekey_hash/kernel.py:54",
         "launches": t2["launches"], "max_abs_err": 0, "ms": h_ms,
         "plain_ms": h_plain, "bound_ms": h_bound, "bound_by": h_by,
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+        **flash_entry}, {
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                  "embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:43",
+        **bag_entry}, {
+        "name": "bm25_block", "route": "cuda",
+        "source": "src/repro_torch/kernels/bm25_block/csrc/bm25_block.cu",
+        "replaces": "src/repro/kernels/bm25_block/kernel.py:51",
+        **bm25_entry}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -105,7 +105,9 @@ def test_resolve_device(monkeypatch):
 
 
 def test_build_finds_sources_and_raises_without_nvcc(monkeypatch, tmp_path):
-    assert set(_build.sources()) == {"dense_topk", "cachekey_hash"}
+    assert set(_build.sources()) == {"dense_topk", "cachekey_hash",
+                                     "bm25_block", "flash_attention",
+                                     "embedding_bag"}
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"

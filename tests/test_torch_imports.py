@@ -52,7 +52,13 @@ def test_module_list_covers_the_slice():
                  "caching.backends", "caching.economics",
                  "caching.codecs", "caching.base", "caching.kv",
                  "caching.scorer", "kernels.cachekey_hash.kernel",
-                 "kernels.cachekey_hash.ops", "kernels.cachekey_hash.ref"):
+                 "kernels.cachekey_hash.ops", "kernels.cachekey_hash.ref",
+                 "kernels.bm25_block.kernel", "kernels.bm25_block.ops",
+                 "kernels.bm25_block.ref", "kernels.flash_attention.kernel",
+                 "kernels.flash_attention.ops",
+                 "kernels.flash_attention.ref",
+                 "kernels.embedding_bag.kernel", "kernels.embedding_bag.ops",
+                 "kernels.embedding_bag.ref"):
         assert f"repro_torch.{name}" in mods
 
 
