@@ -6,7 +6,11 @@ Hopper (``sm_90a``) into a shared library with a plain C interface,
 checkout.  The hash covers the sources and the flags, so an edited
 kernel is rebuilt and an unchanged one is reused.  Builds start at
 first use, one ``nvcc`` per source, all running together.  A failed
-build raises with nvcc's error output; nothing falls back.
+build raises with nvcc's error output; nothing falls back.  A source
+may include headers of its own (``csrc/*.cuh``); they are part of the
+hash.  The flags need no ``-lcuda``: the one driver-API call, TMA's
+``cuTensorMapEncodeTiled`` in ``flash_attention``, is looked up through
+the runtime's ``cudaGetDriverEntryPoint``.
 """
 from __future__ import annotations
 

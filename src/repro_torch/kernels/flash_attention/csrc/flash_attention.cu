@@ -13,39 +13,58 @@
 // q's dtype once at the end.  If causal, key j is masked for query row i
 // when j > i + Sk - Sq (the last query sees the last key).  The reference pads
 // Sk to its block size and masks keys past the true Sk; nothing is padded
-// here, so that mask is the tile's ragged tail.  A masked score is set to
-// NEG_INF = -1e30 as in the reference (kernel.py:32, :67), not -inf, and its
-// probability to 0.  For every row with at least one valid key that gives
-// the softmax over its valid keys, as the reference does (exp(-1e30 - m) is 0
-// in fp32).  A causal row with no valid key (Sq > Sk) averages the keys of the
-// tiles it runs in the reference, so it depends on the block shape, and is NaN
-// in the reference's oracle; this kernel writes 0 there.
+// here, so that mask is the tile's ragged tail.  A masked key gets
+// probability 0: the "simt" path sets its score to NEG_INF = -1e30 as the
+// reference does (kernel.py:32, :67), the other two paths to -inf with the
+// running max starting at -1e30.  For every row with at least one valid key
+// that gives the softmax over its valid keys, as the reference does.  A
+// causal row with no valid key (Sq > Sk) averages the keys of the tiles it
+// runs in the reference, so it depends on the block shape, and is NaN in the
+// reference's oracle; every path here writes 0 there.
 //
 // What bounds it on an H100: at prefill (smollm-360m, B = 1, S = 4,096,
 // H = 15, K = 5, hd = 64, bf16, causal) the 32 GFLOP of the two products
 // against 9.4 MB of q, k, v and out: operations, 33 us at the tensor cores'
 // 989 TFLOP/s.  At decode (B = 128, Sq = 1, Sk = 32,768) the 5.4 GB of K and
-// V: bytes, 1.6 ms at 3.35 TB/s.  This first version is simple rather than
-// fast (no tensor cores, no TMA, no pipelining):
+// V: bytes, 1.6 ms at 3.35 TB/s.  So there are three paths, which the
+// wrapper picks with kernel.py's path_for:
 //
-// * one block of 8 warps per (batch, KV head, tile of 64 query rows), where
-//   the rows of a KV head are its G query heads' rows interleaved, row
-//   r = i * G + g for query position i and head kv_head * G + g: the G heads
-//   that share a KV head read each K/V tile once, and repeated KV heads are
-//   never materialised;
-// * K and V tiles of 64 keys are staged in shared memory as fp32 (K rows
-//   padded to an odd stride, so that lane j reading key j's column c hits a
-//   bank of its own);
-// * a warp owns 8 of the block's rows, interleaved across warps so that a
-//   decode block's few rows fall on different warps; lane j scores keys j
-//   and j + 32 of the tile for its rows, the row max and sum go through warp
-//   shuffles, and the probabilities go through shared memory to the PV
-//   product, where lane j owns output columns j, j + 32, j + 64, j + 96;
-// * causal tiles past the block's last query row are skipped.
+// * "wgmma" (wgmma.cuh): bf16, hd 64 or 128, more than 16 query rows per KV
+//   head.  Tensor cores: a warp-specialised CTA per 128 query rows of one
+//   head, a producer warp feeding K/V tiles of 128 keys through TMA into a
+//   ring of shared memory, two consumer warpgroups running S = Q.K^T and
+//   O += P.V with wgmma, P rounded to bf16 in registers (as the reference's
+//   oracle rounds its probabilities), l summed from the fp32 P.
+// * "decode" (decode.cuh): at most 16 query rows per KV head, f32 or bf16.
+//   Bytes: the key axis split across blocks so that the card fills, 16-byte
+//   loads with the next chunk in flight, partial (m, l, acc) merged by a
+//   second kernel.  P stays fp32.
+// * "simt" (this file): everything else -- f32 prefill (TF32 is opt-in in
+//   this repo, so f32 stays off the tensor cores) and bf16 at other head
+//   sizes.  Scalar fp32, no tensor cores, no TMA, no pipelining:
+//   - one block of 8 warps per (batch, KV head, tile of 64 query rows),
+//     where the rows of a KV head are its G query heads' rows interleaved,
+//     row r = i * G + g for query position i and head kv_head * G + g: the G
+//     heads that share a KV head read each K/V tile once, and repeated KV
+//     heads are never materialised;
+//   - K and V tiles of 64 keys are staged in shared memory as fp32 (K rows
+//     padded to an odd stride, so that lane j reading key j's column c hits
+//     a bank of its own);
+//   - a warp owns 8 of the block's rows, interleaved across warps; lane j
+//     scores keys j and j + 32 of the tile for its rows, the row max and sum
+//     go through warp shuffles, and the probabilities go through shared
+//     memory to the PV product, where lane j owns output columns j, j + 32,
+//     j + 64, j + 96;
+//   - causal tiles past the block's last query row are skipped.
+//
+// All three mask the ragged edges themselves; nothing is padded.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "decode.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -300,4 +319,66 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int causal, int device, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, out, B, H, K, Sq, Sk, hd, scale,
                                causal, device, stream);
+}
+
+// The "wgmma" path: bf16 q, k, v, out as above, hd 64 or 128, Sk >= 1, and
+// 16-byte aligned q, k and v (TMA reads them).
+extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k,
+                                          const void* v, void* out, int B,
+                                          int H, int K, int Sq, int Sk,
+                                          int hd, float scale, int causal,
+                                          int device, void* stream) {
+  if (B < 1 || K < 1 || H < K || H % K != 0 || Sq < 1 || Sk < 1 ||
+      (hd != 64 && hd != 128) ||
+      static_cast<long long>((Sq + wg::kRows - 1) / wg::kRows) * B * H >=
+          (1LL << 31) ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return hd == 64
+             ? wg::launch<64>(q, k, v, out, B, H, K, Sq, Sk, scale, causal, s)
+             : wg::launch<128>(q, k, v, out, B, H, K, Sq, Sk, scale, causal,
+                               s);
+}
+
+// The "decode" path: G * Sq <= 16 query rows per KV head, hd * (bytes of the
+// dtype) a power-of-two multiple of 16 up to 512.  The key axis is cut into
+// n_splits splits of `per` keys; with more than one, part_ml [B, K, n_splits,
+// G * Sq, 2] and part_acc [B, K, n_splits, G * Sq, hd] (fp32) take the
+// partial states and a second kernel merges them into out.
+template <typename T>
+int decode_entry(const void* q, const void* k, const void* v, void* out,
+                 void* part_ml, void* part_acc, int B, int H, int K, int Sq,
+                 int Sk, int hd, float scale, int causal, int n_splits,
+                 int per, int device, void* stream) {
+  if (B < 1 || B > 65535 || K < 1 || K > 65535 || H < K || H % K != 0 ||
+      Sq < 1)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return dec::launch<T>(q, k, v, out, static_cast<float*>(part_ml),
+                        static_cast<float*>(part_acc), B, H, K, Sq, Sk, hd,
+                        scale, causal, n_splits, per,
+                        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_decode_f32(
+    const void* q, const void* k, const void* v, void* out, void* part_ml,
+    void* part_acc, int B, int H, int K, int Sq, int Sk, int hd, float scale,
+    int causal, int n_splits, int per, int device, void* stream) {
+  return decode_entry<float>(q, k, v, out, part_ml, part_acc, B, H, K, Sq, Sk,
+                             hd, scale, causal, n_splits, per, device, stream);
+}
+
+extern "C" int flash_attention_decode_bf16(
+    const void* q, const void* k, const void* v, void* out, void* part_ml,
+    void* part_acc, int B, int H, int K, int Sq, int Sk, int hd, float scale,
+    int causal, int n_splits, int per, int device, void* stream) {
+  return decode_entry<__nv_bfloat16>(q, k, v, out, part_ml, part_acc, B, H, K,
+                                     Sq, Sk, hd, scale, causal, n_splits, per,
+                                     device, stream);
 }

@@ -1,8 +1,11 @@
 """flash_attention of repro_torch: the port's op on the CPU (its plain
 version) against the reference's op (the Pallas kernel in interpret
 mode) on the same numpy-seeded inputs — the reference's sweep, a decode
-step, causal Sq < Sk, MQA and GQA groupings — and dispatch by device.
-The CUDA kernel itself is tested on the card by
+step, causal Sq < Sk, MQA and GQA groupings — and dispatch by device;
+``path_for``'s choice of kernel; the plain versions of the kernels'
+arithmetic (bf16 probabilities for the "wgmma" path, split-and-merge
+for the "decode" path) against the reference and its bound.  The CUDA
+kernels themselves are tested on the card by
 ``test_torch_flash_attention_cuda.py``."""
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +17,13 @@ from repro.kernels.flash_attention import flash_attention_op as j_op
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
                                                  flash_attention_op)
+from repro_torch.kernels.flash_attention.kernel import (decode_splits,
+                                                        path_for)
+from repro_torch.kernels.flash_attention.ref import (NEG_INF,
+                                                     attention_bf16p_ref,
+                                                     attention_split_ref,
+                                                     bf16p_excess,
+                                                     merge_partials)
 
 torch.set_num_threads(1)
 
@@ -123,3 +133,171 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         flash_attention(torch.zeros(1, 2, 4, 8), torch.zeros(1, 1, 4, 8),
                         torch.zeros(1, 1, 4, 8))
     assert flash_attention.launches == 0
+
+
+# (dtype, B, H, K, Sq, Sk, hd, causal, path): smollm-360m's prefill and
+# decode steps, the reference's sweep, kernels_bench's f32 shape, bf16
+# at head sizes the tensor-core path does not take, and G·Sq at the
+# decode path's limit of 16 rows and one past it
+PATHS = [
+    ("bfloat16", 1, 15, 5, 4096, 4096, 64, True, "wgmma"),
+    ("bfloat16", 128, 15, 5, 1, 32768, 64, True, "decode"),
+    ("bfloat16", 1, 15, 5, 1, 32768, 64, True, "decode"),
+    *[(dt, B, H, K, Sq, Sk, hd, c, "simt" if dt == "float32" else "wgmma")
+      for B, H, K, Sq, Sk, hd, c, dt in FLASH_SWEEP],
+    ("float32", 2, 8, 8, 1024, 1024, 64, True, "simt"),
+    ("float32", 1, 8, 2, 512, 512, 64, True, "simt"),
+    ("float32", 4, 8, 2, 1, 500, 64, True, "decode"),
+    ("float32", 2, 3, 1, 1, 65, 100, False, "simt"),
+    ("bfloat16", 1, 4, 2, 64, 64, 32, True, "simt"),
+    ("bfloat16", 1, 4, 2, 64, 64, 48, True, "simt"),
+    ("bfloat16", 1, 4, 2, 64, 64, 100, True, "simt"),
+    ("bfloat16", 1, 4, 2, 1, 64, 32, True, "decode"),
+    ("bfloat16", 1, 4, 2, 1, 64, 48, True, "simt"),
+    ("bfloat16", 1, 4, 2, 1, 64, 100, True, "simt"),
+    ("bfloat16", 1, 16, 1, 1, 64, 64, True, "decode"),     # G·Sq = 16
+    ("bfloat16", 1, 17, 1, 1, 64, 64, True, "wgmma"),      # G·Sq = 17
+    ("bfloat16", 1, 4, 1, 4, 64, 128, False, "decode"),    # 16
+    ("bfloat16", 1, 1, 1, 17, 64, 128, False, "wgmma"),    # 17
+    ("float32", 1, 1, 1, 16, 64, 64, True, "decode"),
+    ("float32", 1, 1, 1, 17, 64, 64, True, "simt"),
+]
+
+
+@pytest.mark.parametrize("dt,B,H,K,Sq,Sk,hd,causal,path", PATHS)
+def test_path_for(dt, B, H, K, Sq, Sk, hd, causal, path):
+    assert path_for(getattr(torch, dt), B, H, K, Sq, Sk, hd, causal) == path
+
+
+@pytest.mark.parametrize("B,K,Sk", [(128, 5, 32768), (1, 5, 32768),
+                                    (4, 5, 1000), (1, 1, 1), (3, 2, 4097)])
+def test_decode_splits_cover_the_keys_once(B, K, Sk):
+    n, per = decode_splits(B, K, Sk)
+    assert per % 64 == 0 and (n - 1) * per < Sk <= n * per
+    assert n == 1 or per >= 256
+
+
+def test_decode_splits_fill_the_card():
+    """640 (batch, KV head) pairs at smollm's B 128 still get a few
+    splits each; 5 pairs at B 1 get a split per 256 keys."""
+    assert decode_splits(128, 5, 32768) == (7, 4736)
+    assert decode_splits(1, 5, 32768) == (128, 256)
+
+
+@pytest.mark.parametrize("B,H,K,S,hd", [(1, 3, 1, 256, 64),
+                                        (1, 2, 2, 192, 128)])
+def test_bf16_probabilities_are_within_their_bound(B, H, K, S, hd):
+    """The "wgmma" path rounds P to bf16 for the PV product.  Its plain
+    emulation stays within 2**-7 |plain| + 2**-8 A + 1e-4 of the Pallas
+    op (fp32 P) and of the port's plain version, using about two thirds
+    of it."""
+    (jq, jk, jv), (q, k, v) = _inputs(B, H, K, S, S, hd, "bfloat16", S + hd)
+    got = attention_bf16p_ref(q, k, v, causal=True)
+    pallas = torch.from_numpy(np.asarray(
+        j_op(jq, jk, jv, causal=True, block_q=64, block_k=64,
+             interpret=True), np.float32))
+    for plain in (pallas, attention_ref(q, k, v, causal=True)):
+        assert 0.3 < float(bf16p_excess(got, q, k, v, plain=plain).max()) \
+            <= 1.0
+
+
+@pytest.mark.parametrize("B,H,K,S,hd", [(1, 3, 1, 256, 64),
+                                        (1, 2, 2, 192, 128)])
+def test_reference_oracle_rounds_scores_and_probabilities(B, H, K, S, hd):
+    """The reference's oracle rounds P to bf16 too, but also its scores
+    (its QKᵀ einsum returns q's dtype): a plain emulation of both
+    roundings gives the oracle to within one rounding of the output.
+    With fp32 scores that arithmetic is within the "wgmma" path's bound;
+    the oracle itself goes past it, as does nothing the port computes."""
+    (jq, jk, jv), (q, k, v) = _inputs(B, H, K, S, S, hd, "bfloat16", S + hd)
+    oracle = torch.from_numpy(np.asarray(
+        j_attention_ref(jq, jk, jv, causal=True), np.float32))
+    G = H // K
+    qg = q.float().reshape(B, K, G, S, hd)
+    causal = torch.arange(S)[None, :] <= torch.arange(S)[:, None]
+    outs = []
+    for round_scores in (True, False):
+        s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float())
+        if round_scores:
+            s = s.bfloat16().float()
+        p = torch.softmax((s / hd ** 0.5).masked_fill(~causal, -np.inf), -1)
+        outs.append(torch.einsum("bkgqs,bksh->bkgqh",
+                                 p.bfloat16().float(), v.float())
+                    .reshape(B, H, S, hd).bfloat16())
+    rtol, atol = TOL["bfloat16"]
+    np.testing.assert_allclose(outs[0].float().numpy(), oracle.numpy(),
+                               rtol=rtol, atol=atol)
+    assert float(bf16p_excess(outs[1], q, k, v).max()) <= 1.0
+    assert float(bf16p_excess(oracle, q, k, v).max()) > 1.0
+
+
+def test_bf16_probabilities_exceed_one_rounding_of_the_output():
+    """Why the "wgmma" path has a bound of its own: rounding P to bf16
+    moves outputs by more than one rounding of the output, the
+    tolerance of the fp32-P paths, and so does the reference's oracle;
+    a kernel that drops a tile of 64 keys fails the new bound."""
+    (jq, jk, jv), (q, k, v) = _inputs(1, 3, 1, 256, 256, 64, "bfloat16", 11)
+    plain = attention_ref(q, k, v, causal=True).float()
+    rtol, atol = TOL["bfloat16"]
+
+    def beyond_old(out):
+        return int(((out.float() - plain).abs()
+                    > atol + rtol * plain.abs()).sum())
+
+    assert beyond_old(attention_bf16p_ref(q, k, v, causal=True)) > 100
+    oracle = torch.from_numpy(np.asarray(
+        j_attention_ref(jq, jk, jv, causal=True), np.float32))
+    assert beyond_old(oracle) > 100
+    j = torch.arange(256)
+    keep = (j[None, :] <= j[:, None]) & ((j < 128) | (j >= 192))[None, :]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float().expand(-1, 3,
+                                                                   -1, -1))
+    p = torch.softmax((s / 8).masked_fill(~keep, -np.inf), -1)
+    skipped = torch.einsum("bhqk,bhkd->bhqd", p,      # keys 128-191 dropped
+                           v.float().expand(-1, 3, -1, -1))
+    assert int((bf16p_excess(skipped, q, k, v) > 1).sum()) > 1000
+
+
+def _split_inputs(seed):
+    rng = np.random.default_rng(seed)
+    B, H, K, Sq, Sk, hd = 2, 6, 2, 40, 70, 16
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in ((B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd))]
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 7])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_and_merge_matches_attention_ref(n_splits, causal):
+    """The decode path's arithmetic: per-split (m, l, acc), merged.  At 7
+    splits of 10 keys, causal, the last split's keys are all masked for
+    query rows 0-29 (m = -1e30, l = 0 there)."""
+    q, k, v = _split_inputs(n_splits)
+    per = -(-70 // n_splits)
+    got = attention_split_ref(q, k, v, causal=causal, keys_per_split=per)
+    np.testing.assert_allclose(got.numpy(),
+                               attention_ref(q, k, v, causal=causal).numpy(),
+                               atol=2e-6)
+    want = np.asarray(j_attention_ref(*(jnp.asarray(t.numpy())
+                                        for t in (q, k, v)), causal=causal))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+def test_merge_ignores_a_split_with_no_valid_key():
+    rng = np.random.default_rng(4)
+    m = torch.from_numpy(rng.normal(size=(3, 2)).astype(np.float32))
+    l = torch.from_numpy(rng.uniform(0.5, 2, size=(3, 2)).astype(np.float32))
+    acc = torch.from_numpy(rng.normal(size=(3, 2, 8)).astype(np.float32))
+    base = merge_partials(m, l, acc)
+    with_empty = merge_partials(torch.cat([m, torch.full((3, 1), NEG_INF)], 1),
+                                torch.cat([l, torch.zeros(3, 1)], 1),
+                                torch.cat([acc, torch.zeros(3, 1, 8)], 1))
+    np.testing.assert_allclose(with_empty.numpy(), base.numpy(), rtol=1e-6)
+    none = merge_partials(torch.full((1, 4), NEG_INF), torch.zeros(1, 4),
+                          torch.zeros(1, 4, 8))
+    assert bool((none == 0).all())
+
+
+def test_cpu_tensors_count_no_path():
+    _, (q, k, v) = _inputs(1, 4, 2, 16, 16, 32, "bfloat16", 3)
+    flash_attention_op(q, k, v)
+    assert sum(flash_attention.paths.values()) == 0

@@ -1,6 +1,8 @@
-"""The hand-written CUDA ``flash_attention`` kernel against its plain
-PyTorch version, on the card.  Imports neither jax nor ``repro``, so it
-runs on a machine with only the port's dependencies:
+"""The hand-written CUDA ``flash_attention`` kernels against their plain
+PyTorch version, on the card, one group of tests per path that
+``path_for`` picks ("wgmma", "decode", "simt"), each asserting the path
+taken and the launches.  Imports neither jax nor ``repro``, so it runs
+on a machine with only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_attention_cuda.py
 
@@ -12,14 +14,19 @@ import torch
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
                                                  flash_attention_op)
-from repro_torch.kernels.flash_attention.kernel import MAX_HEAD_DIM
+from repro_torch.kernels.flash_attention.kernel import (MAX_HEAD_DIM,
+                                                        decode_splits,
+                                                        path_for)
+from repro_torch.kernels.flash_attention.ref import bf16p_excess
 
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
-# (rtol, atol): kernel and plain version both compute in fp32, so their
-# bf16 outputs differ by at most one rounding, 2**-7 of the output's size
+# (rtol, atol) of the fp32-P paths ("decode", "simt"): kernel and plain
+# version both compute in fp32, so their bf16 outputs differ by at most
+# one rounding, 2**-7 of the output's size.  The "wgmma" path rounds P
+# to bf16 and is held to ref.bf16p_excess instead.
 TOL = {"float32": (0.0, 2e-5), "bfloat16": (2 ** -7, 1e-4)}
 # (B, H, K, Sq, Sk, hd, causal, dtype): the reference's sweep, then a
 # decode step, causal Sq < Sk, smollm-360m's grouping, odd widths
@@ -53,33 +60,120 @@ def _inputs(B, H, K, Sq, Sk, hd, dtype, device, seed=0):
             for s in ((B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd))]
 
 
-@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,dtype", CASES)
-def test_kernel_matches_plain_version(cuda, B, H, K, Sq, Sk, hd, causal,
-                                      dtype):
-    q, k, v = _inputs(B, H, K, Sq, Sk, hd, dtype, cuda)
-    before = flash_attention.launches
+def _run(q, k, v, causal, path):
+    """flash_attention_op on the card; asserts the path it took and its
+    launches (a split decode launches twice)."""
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    assert path_for(q.dtype, B, H, K, Sq, Sk, hd, causal) == path
+    launches = 1
+    if path == "decode" and decode_splits(B, K, Sk)[0] > 1:
+        launches = 2
+    before, paths = flash_attention.launches, flash_attention.paths.copy()
     got = flash_attention_op(q, k, v, causal=causal)
-    want = attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert flash_attention.launches == before + launches
+    paths[path] += 1
+    assert flash_attention.paths == paths
     assert got.dtype == q.dtype and got.shape == q.shape
-    rtol, atol = TOL[dtype]
+    return got
+
+
+def _check(got, q, k, v, causal, path):
+    want = attention_ref(q, k, v, causal=causal)
+    if path == "wgmma":
+        share = bf16p_excess(got, q, k, v, causal=causal, plain=want)
+        assert float(share.max()) <= 1.0, float(share.max())
+        return
+    rtol, atol = TOL[str(q.dtype).removeprefix("torch.")]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=rtol,
                                atol=atol)
 
 
-def test_rows_without_a_valid_key_are_zero(cuda):
-    """Causal Sq = 8 > Sk = 4: rows 0-3 see no key.  The reference's
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,dtype", CASES)
+def test_kernel_matches_plain_version(cuda, B, H, K, Sq, Sk, hd, causal,
+                                      dtype):
+    q, k, v = _inputs(B, H, K, Sq, Sk, hd, dtype, cuda)
+    path = path_for(q.dtype, B, H, K, Sq, Sk, hd, causal)
+    _check(_run(q, k, v, causal, path), q, k, v, causal, path)
+
+
+# ---- "wgmma": bf16, hd 64 / 128, G·Sq > 16 ---------------------------------
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,H,K,Sq,Sk", [(1, 4, 2, 257, 257),
+                                         (2, 3, 1, 1000, 1000),
+                                         (1, 6, 2, 100, 1000),
+                                         (1, 2, 2, 257, 1000),
+                                         (1, 1, 1, 17, 40)])
+def test_wgmma_path(cuda, B, H, K, Sq, Sk, hd, causal):
+    q, k, v = _inputs(B, H, K, Sq, Sk, hd, "bfloat16", cuda)
+    _check(_run(q, k, v, causal, "wgmma"), q, k, v, causal, "wgmma")
+
+
+def test_wgmma_path_at_smollm_prefill(cuda):
+    q, k, v = _inputs(1, 15, 5, 4096, 4096, 64, "bfloat16", cuda)
+    _check(_run(q, k, v, True, "wgmma"), q, k, v, True, "wgmma")
+
+
+def test_wgmma_path_copies_a_misaligned_view(cuda):
+    """TMA needs a 16-byte aligned base: a view one element in is copied
+    by the wrapper and still runs on the tensor cores."""
+    q, k, v = _inputs(1, 2, 1, 130, 130, 64, "bfloat16", cuda)
+    flat = torch.empty(k.numel() + 1, device=cuda, dtype=k.dtype)
+    k_off = flat[1:].view_as(k)
+    k_off.copy_(k)
+    assert k_off.data_ptr() % 16 != 0
+    got = _run(q, k_off, v, True, "wgmma")
+    _check(got, q, k, v, True, "wgmma")
+
+
+# ---- "decode": G·Sq <= 16, any dtype -----------------------------------------
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,dtype", [
+    (1, 15, 5, 1, 32768, 64, True, "bfloat16"),     # B 1: 128 splits
+    (128, 15, 5, 1, 4096, 64, True, "bfloat16"),    # B 128
+    (4, 8, 2, 1, 3000, 64, True, "float32"),
+    (2, 8, 1, 2, 700, 128, False, "float32"),       # G·Sq = 16
+    (1, 8, 1, 1, 5000, 128, True, "bfloat16"),      # 8 rows
+    (3, 4, 2, 5, 333, 32, True, "bfloat16"),        # 10 rows, Sq > 1
+    (2, 2, 2, 1, 200, 16, False, "float32"),        # one split
+])
+def test_decode_path(cuda, B, H, K, Sq, Sk, hd, causal, dtype):
+    q, k, v = _inputs(B, H, K, Sq, Sk, hd, dtype, cuda)
+    _check(_run(q, k, v, causal, "decode"), q, k, v, causal, "decode")
+
+
+# ---- "simt": everything else -------------------------------------------------
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,dtype", [
+    (2, 4, 2, 128, 128, 64, True, "float32"),       # f32 prefill
+    (1, 8, 8, 300, 300, 128, False, "float32"),
+    (1, 6, 2, 70, 300, 48, True, "bfloat16"),       # bf16, hd 48
+])
+def test_simt_path(cuda, B, H, K, Sq, Sk, hd, causal, dtype):
+    q, k, v = _inputs(B, H, K, Sq, Sk, hd, dtype, cuda)
+    _check(_run(q, k, v, causal, "simt"), q, k, v, causal, "simt")
+
+
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,dtype,path", [
+    (1, 2, 1, 8, 4, 16, "float32", "decode"),
+    (1, 1, 1, 200, 100, 64, "bfloat16", "wgmma"),
+    (1, 2, 1, 40, 20, 48, "bfloat16", "simt"),
+])
+def test_rows_without_a_valid_key_are_zero(cuda, B, H, K, Sq, Sk, hd, dtype,
+                                           path):
+    """Causal Sq > Sk: rows 0 to Sq - Sk - 1 see no key.  The reference's
     kernel gives a block-size-dependent average there and its oracle
-    NaN; this kernel writes 0, and the other rows match."""
-    q, k, v = _inputs(1, 2, 1, 8, 4, 16, "float32", cuda)
-    got = flash_attention_op(q, k, v).cpu()
-    want = attention_ref(q, k, v).cpu()
-    assert bool((got[:, :, :4] == 0).all())
-    assert bool(want[:, :, :4].isnan().all())
-    np.testing.assert_allclose(got[:, :, 4:].numpy(),
-                               want[:, :, 4:].numpy(), atol=2e-5)
+    NaN; every path here writes 0, and the other rows match."""
+    q, k, v = _inputs(B, H, K, Sq, Sk, hd, dtype, cuda)
+    got = _run(q, k, v, True, path)
+    want = attention_ref(q, k, v)
+    n = Sq - Sk
+    assert bool((got[:, :, :n] == 0).all())
+    assert bool(want[:, :, :n].isnan().all())
+    # the rows past n, as queries of their own, have the same causal limits
+    _check(got[:, :, n:].contiguous(), q[:, :, n:].contiguous(), k, v, True,
+           path)
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):
