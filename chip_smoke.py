@@ -12,7 +12,9 @@ Phases, one output line or more each, the JSON result last:
    and ptxas's registers, shared memory and spills of each kernel;
 3. kernels: each kernel against its plain PyTorch version on the card —
    ``dense_topk`` at the reference's test shapes, a duplicated-rows tie
-   case and the main path's shape; ``cachekey_hash`` on the
+   case, copies of docs in other corpus splits (exact), the main path's
+   shape at k 200 and 100 and MS MARCO passage's corpus size;
+   ``cachekey_hash`` on the
    reference's sweep, provenance rows and a wide batch, bit for bit,
    and ``digest_bytes`` through it against the host FNV loop; then
    ``flash_attention``, ``embedding_bag`` and ``bm25_block`` driven
@@ -64,6 +66,10 @@ BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 # 32-bit integer xor/multiply: 64 per SM and clock, 132 SMs, 1.98 GHz
 INT32_OP_PER_S = 64 * 132 * 1.98e9
 NEAR_TIE = 1e-5
+# MS MARCO passage's corpus (8,841,823 passages); its row is timed over
+# fewer repetitions, since the plain version sorts 53 x 8.8M scores
+MSMARCO_PASSAGES = 8_841_823
+MSMARCO_REPS = 5
 # (Q, N, d, k, dtype) of the reference's dense_topk sweep
 # (tests/test_kernels.py DENSE_SWEEP)
 SWEEP = [(8, 256, 32, 10, "float32"), (5, 300, 33, 7, "float32"),
@@ -235,6 +241,115 @@ def hash_bound(n: int, L: int):
     each token read once and each [n, 2] lane pair written once, against
     an xor and a multiply per byte and lane (16 per token)."""
     return bound(4 * n * L + 8 * n, 16 * n * L, INT32_OP_PER_S)
+
+
+def topk_bound(Q: int, N: int, d: int, k: int, elt: int):
+    """q and c read once and vals, idxs written once, against the
+    product's 2*Q*N*d fp32 flops (the selection's compares not
+    counted)."""
+    return bound((Q * d + N * d) * elt + Q * k * 8, 2 * Q * N * d,
+                 FP32_FLOP_PER_S)
+
+
+def time_topk(torch, card: str, label: str, q, c, k: int, tol: float,
+              reps: int = 20) -> dict:
+    """dense_topk at one shape against its plain version, then timed
+    beside it and ``torch.topk(q @ c.T)`` (yardstick only)."""
+    from repro_torch.kernels.dense_topk import dense_topk, dense_topk_ref
+    from repro_torch.kernels.dense_topk.kernel import _sms, plan
+    (Q, d), N = q.shape, c.shape[0]
+    p = plan(Q, N, d, k, sms=_sms(q.device.index))
+    (_, _), n = driven(torch, lambda: dense_topk(q, c, k=k), "dense_topk",
+                       p.launches)
+    err, near = check_topk(torch, dense_topk, dense_topk_ref, q, c, k, tol)
+    ms = time_ms(torch, lambda: dense_topk(q, c, k=k), reps=reps)
+    plain_ms = time_ms(torch, lambda: dense_topk_ref(q, c, k=k), reps=reps)
+    library_ms = time_ms(torch, lambda: torch.topk(q @ c.T, k, dim=1),
+                         reps=reps)
+    bound_ms, bound_by = topk_bound(Q, N, d, k, c.element_size())
+    log(f"kernels: dense_topk {label} Q={Q} N={N} d={d} k={k}: "
+        f"max_abs_err {err:.3g} (tol {tol}), near-tie ranks {near}; "
+        f"{p.splits} splits x {-(-Q // p.bq)} query tiles, {n} launches; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk(q @ c.T) "
+        f"{library_ms:.4f} ms (yardstick only), bound {bound_ms * 1e3:.2f} "
+        f"us ({bound_by}, {bound_ms / ms:.1%} of it); median of {reps}; "
+        f"{card}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def check_dense_topk(torch, card: str, mp) -> dict:
+    """dense_topk against its plain version on the card: the reference's
+    sweep; duplicated rows; copies of a doc in other corpus splits, with
+    integer entries so both sides are exact and must agree exactly; the
+    main path's shape at its two k (the hybrid system's ``dense % 100``
+    is the second call); and MS MARCO passage's corpus size, 8,841,823
+    random rows of 128 (4.53 GB).  Returns the main shape's entry."""
+    from repro_torch.kernels.dense_topk import dense_topk, dense_topk_ref
+    from repro_torch.kernels.dense_topk.kernel import _sms, plan
+    gen = torch.Generator().manual_seed(0)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for Q, N, d, k, dt in SWEEP:
+        q = torch.randn(Q, d, generator=gen).to("cuda", dtypes[dt])
+        c = torch.randn(N, d, generator=gen).to("cuda", dtypes[dt])
+        tol = 2e-5 if dt == "float32" else 2e-2
+        err, near = check_topk(torch, dense_topk, dense_topk_ref, q, c, k,
+                               tol)
+        log(f"kernels: dense_topk Q={Q} N={N} d={d} k={k} {dt}: "
+            f"max_abs_err {err:.3g} (tol {tol}), near-tie ranks {near}")
+    q = torch.randn(4, 32, generator=gen).to("cuda")
+    base = torch.randn(20, 32, generator=gen).to("cuda")
+    c = torch.cat([base, base])                   # every doc duplicated
+    err, near = check_topk(torch, dense_topk, dense_topk_ref, q, c, 40, 2e-5)
+    _, idx = dense_topk(q, c, k=40)
+    pos = idx.cpu().argsort(dim=1)                # rank of each doc
+    if near or not bool((pos[:, :20] < pos[:, 20:]).all()):
+        raise AssertionError("dense_topk tie order: lower index must win")
+    log(f"kernels: dense_topk duplicated rows: max_abs_err {err:.3g}, "
+        f"near-tie ranks {near}, lower index first")
+
+    # a 5,000-doc base repeated 8 times: each doc's copies in other splits
+    q = torch.randint(-3, 4, (4, 64), generator=gen).float().to("cuda")
+    base = torch.randint(-3, 4, (5000, 64), generator=gen).float()
+    c = base.repeat(8, 1).to("cuda")
+    k = 200
+    p = plan(4, len(c), 64, k, sms=_sms(0))
+    kv, ki = dense_topk(q, c, k=k)
+    rv, ri = dense_topk_ref(q, c, k=k)
+    torch.cuda.synchronize()
+    if not (torch.equal(kv, rv) and torch.equal(ki, ri)):
+        raise AssertionError("dense_topk copies across splits: kernel and "
+                             "plain version differ on exact integer scores")
+    for row in ki.cpu().tolist():
+        pos = {g: r for r, g in enumerate(row)}
+        if not all(pos.get(e, k) < pos[g] for g in pos
+                   for e in range(g % 5000, g, 5000)):
+            raise AssertionError("dense_topk copies across splits: a later "
+                                 "copy ranks before an earlier one")
+    copies = sum(g >= 5000 for g in ki.flatten().tolist())
+    log(f"kernels: dense_topk copies across {p.splits} splits (5,000-doc "
+        f"base x 8, integer entries): kernel equals the plain version "
+        f"exactly, {copies} of {ki.numel()} results are later copies, each "
+        f"after every earlier one")
+
+    q_main = mp.dense_enc.encode(mp.topics["query"].tolist())
+    c_main = mp.dense_index.matrix
+    entry = time_topk(torch, card, "main shape", q_main, c_main, max(CUTS),
+                      2e-5)
+    time_topk(torch, card, "main shape, hybrid's dense % 100", q_main,
+              c_main, 100, 2e-5)
+    del q, c, base
+    cg = torch.Generator(device="cuda").manual_seed(8)
+    scale = 128 ** -0.25                          # scores O(1)
+    q = torch.randn(53, 128, generator=cg, device="cuda") * scale
+    c = torch.randn(MSMARCO_PASSAGES, 128, generator=cg, device="cuda") \
+        * scale
+    time_topk(torch, card, "MS MARCO passage size", q, c, 200, 2e-5,
+              reps=MSMARCO_REPS)
+    del q, c
+    torch.cuda.empty_cache()
+    return entry
 
 
 def check_cachekey_hash(torch, card: str) -> dict:
@@ -770,7 +885,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.cachekey_hash import (cachekey_hash,
                                                    cachekey_hash_ref)
-    from repro_torch.kernels.dense_topk import dense_topk, dense_topk_ref
+    from repro_torch.kernels.dense_topk import dense_topk
 
     # -- 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -793,46 +908,7 @@ def main() -> int:
     mp = setup_main_path(torch)
 
     # -- 3. kernels against their plain versions ---------------------------
-    gen = torch.Generator().manual_seed(0)
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    for Q, N, d, k, dt in SWEEP:
-        q = torch.randn(Q, d, generator=gen).to("cuda", dtypes[dt])
-        c = torch.randn(N, d, generator=gen).to("cuda", dtypes[dt])
-        tol = 2e-5 if dt == "float32" else 2e-2
-        err, near = check_topk(torch, dense_topk, dense_topk_ref, q, c, k,
-                               tol)
-        log(f"kernels: dense_topk Q={Q} N={N} d={d} k={k} {dt}: "
-            f"max_abs_err {err:.3g} (tol {tol}), near-tie ranks {near}")
-    q = torch.randn(4, 32, generator=gen).to("cuda")
-    base = torch.randn(20, 32, generator=gen).to("cuda")
-    c = torch.cat([base, base])                   # every doc duplicated
-    err, near = check_topk(torch, dense_topk, dense_topk_ref, q, c, 40, 2e-5)
-    _, idx = dense_topk(q, c, k=40)
-    pos = idx.cpu().argsort(dim=1)                # rank of each doc
-    if near or not bool((pos[:, :20] < pos[:, 20:]).all()):
-        raise AssertionError("dense_topk tie order: lower index must win")
-    log(f"kernels: dense_topk duplicated rows: max_abs_err {err:.3g}, "
-        f"near-tie ranks {near}, lower index first")
-
-    q_main = mp.dense_enc.encode(mp.topics["query"].tolist())
-    c_main = mp.dense_index.matrix
-    k_main = max(CUTS)
-    (Q, d), N = q_main.shape, c_main.shape[0]
-    err_main, near = check_topk(torch, dense_topk, dense_topk_ref, q_main,
-                                c_main, k_main, 2e-5)
-    ms = time_ms(torch, lambda: dense_topk(q_main, c_main, k=k_main))
-    plain_ms = time_ms(torch, lambda: dense_topk_ref(q_main, c_main,
-                                                     k=k_main))
-    library_ms = time_ms(torch, lambda: torch.topk(q_main @ c_main.T,
-                                                   k_main, dim=1))
-    n_bytes = (Q * d + N * d) * 4 + Q * k_main * 8
-    n_flop = 2 * Q * N * d
-    bound_ms, bound_by = bound(n_bytes, n_flop, FP32_FLOP_PER_S)
-    log(f"kernels: dense_topk main shape Q={Q} N={N} d={d} k={k_main}: "
-        f"max_abs_err {err_main:.3g}, near-tie ranks {near}; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk(q @ c.T) "
-        f"{library_ms:.4f} ms (yardstick only), bound "
-        f"{bound_ms * 1e3:.2f} us ({bound_by}); {card}")
+    topk_entry = check_dense_topk(torch, card, mp)
     hash_timed = check_cachekey_hash(torch, card)
     t = time.perf_counter()
     flash_entry = check_flash_attention(torch, card)
@@ -858,14 +934,21 @@ def main() -> int:
 
     t = time.perf_counter()
     plain = mp.run("torch")
+    worst = 0.0
     for n in NAMES:
         for m in MEASURES:
             if abs(res.means[n][m] - plain.means[n][m]) > 1e-6:
                 raise AssertionError(
                     f"{n} {m}: kernel path {res.means[n][m]} vs plain "
                     f"path {plain.means[n][m]}")
-    log(f"main: backend='torch' means equal to 1e-6 "
-        f"({time.perf_counter() - t:.1f} s)")
+            for qid, v in plain.per_query[n][m].items():
+                worst = max(worst, abs(res.per_query[n][m][qid] - v))
+    if worst > 1e-6:
+        raise AssertionError(f"main: per-query values differ by {worst} "
+                             f"between the kernel and plain paths")
+    log(f"main: backend='torch' means and per-query values equal to 1e-6 "
+        f"(largest per-query difference {worst:.3g}; "
+        f"{time.perf_counter() - t:.1f} s)")
 
     # -- 5. Table 2 ---------------------------------------------------------
     t = time.perf_counter()
@@ -894,9 +977,7 @@ def main() -> int:
         "name": "dense_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/dense_topk/csrc/dense_topk.cu",
         "replaces": "src/repro/kernels/dense_topk/kernel.py:96",
-        "launches": launches, "max_abs_err": err_main, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}, {
+        "launches": launches, **topk_entry}, {
         "name": "cachekey_hash", "route": "cuda",
         "source": "src/repro_torch/kernels/cachekey_hash/csrc/"
                   "cachekey_hash.cu",

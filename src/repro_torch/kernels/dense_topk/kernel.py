@@ -3,35 +3,108 @@
 The kernel (``csrc/dense_topk.cu``) replaces the reference's Pallas
 kernel ``repro.kernels.dense_topk.kernel.dense_topk``.  It is built by
 ``kernels._build`` at first use and called through ``ctypes``.  This
-wrapper takes CUDA tensors only: it checks them, allocates the outputs,
-launches on the current stream and raises if the launch fails.
-``dense_topk.launches`` counts the launches.
+wrapper takes CUDA tensors only: it checks them, allocates the outputs
+and the partial lists, launches on the current stream and raises if a
+launch fails.  ``plan`` decides how the corpus is split over the card's
+SMs; ``dense_topk.launches`` counts CUDA launches (two when the corpus
+is split: score-and-select, then the merge).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from .. import _build
 
-__all__ = ["dense_topk", "MAX_K", "TILE"]
+__all__ = ["dense_topk", "plan", "Plan", "MAX_K"]
 
-TILE = 1024            # docs per tile (kTile in the source)
-MAX_K = TILE           # the running top-k buffer is at most one tile
+MAX_K = 1024           # the most a query row holds: k_pad + CAND slots
 MAX_SMEM = 232448      # bytes of shared memory a block may use on sm_90
-DTYPES = {torch.float32: "dense_topk_f32", torch.bfloat16: "dense_topk_bf16"}
+SMS = 132              # streaming multiprocessors of an H100 SXM
+BQ = 16                # queries per block (kBQ in the source)
+BN = 128               # docs per tile (kBN)
+BK = 32                # dims per chunk (kBK)
+CAND = 256             # candidate slots per query row (kCand)
+STAGE_BYTES = (BN + BQ) * BK * 4 + 16   # fp32: TMA boxes and 2 barriers
+MAX_STAGES = 4         # depth of the fp32 TMA ring, where it fits
+DTYPES = {torch.float32: "dense_topk_select_f32",
+          torch.bfloat16: "dense_topk_select_bf16"}
+
+
+class Plan(NamedTuple):
+    bq: int              # queries per block
+    splits: int          # corpus splits S: the grid is (ceil(Q / bq), S)
+    per_split: int       # docs per split, a multiple of BN; the last is short
+    k_pad: int           # power of two >= k: the sort's length
+    stages: int          # depth of the fp32 TMA ring (bf16: 2 stages)
+    launches: int        # 1, or 2 when the splits are merged
+    smem: int            # shared memory bytes of the score-and-select block
+    merge_smem: int      # of the merge block (0 without one)
+
+
+def merge_smem(splits: int, k: int, k_pad: int) -> int:
+    """Shared memory of the merge block: value, index and key of each of
+    the splits' k candidates, the k_pad winners, 9 reduction slots."""
+    return 12 * splits * k + 8 * k_pad + 4 * 9
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(Q: int, N: int, d: int, k: int, sms: int = SMS) -> Plan:
+    """How ``dense_topk`` splits a [Q, d] x [N, d] top-k over the card.
+
+    As many splits as ceil(Q / BQ) x S blocks fit on ``sms`` SMs, but
+    each split keeps at least 4 x k_pad docs (so the threshold filter
+    has docs to drop) and the merge's S x k candidates fit one block's
+    shared memory.  Shared memory does not depend on d: it is walked in
+    chunks of BK."""
+    if not (Q >= 1 and N >= 1 and d >= 1 and 1 <= k <= min(N, MAX_K)):
+        raise ValueError(f"dense_topk plan needs Q, N, d >= 1 and 1 <= k <= "
+                         f"min(N, {MAX_K}), got Q={Q} N={N} d={d} k={k}")
+    k_pad = 1 << (k - 1).bit_length()
+    most = min(sms // _cdiv(Q, BQ), N // max(BN, 4 * k_pad),
+               (MAX_SMEM - merge_smem(0, k, k_pad)) // (12 * k))
+    per = BN * _cdiv(_cdiv(N, max(1, most)), BN)
+    splits = _cdiv(N, per)
+    lists = BQ * (k_pad + CAND) * 8
+    stages = min(MAX_STAGES, (MAX_SMEM - 1024 - lists) // STAGE_BYTES)
+    return Plan(bq=BQ, splits=splits, per_split=per, k_pad=k_pad,
+                stages=stages, launches=1 if splits == 1 else 2,
+                smem=1024 + stages * STAGE_BYTES + lists,
+                merge_smem=merge_smem(splits, k, k_pad) if splits > 1 else 0)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# (q, c, out_v, out_i, n_q, n_docs, d, k, k_pad, splits, per_split,
+#  stages, device, stream)
+_SELECT_ARGS = [_PTR] * 4 + [_INT] * 9 + [_PTR]
+# (part_v, part_i, vals, idxs, n_q, splits, k, k_pad, device, stream)
+_MERGE_ARGS = [_PTR] * 4 + [_INT] * 5 + [_PTR]
 
 
 @functools.cache
 def _entry(symbol: str):
     fn = getattr(_build.load("dense_topk"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+    fn.argtypes = _MERGE_ARGS if symbol == "dense_topk_merge" \
+        else _SELECT_ARGS
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check(err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"dense_topk launch failed with CUDA error {err}")
 
 
 def dense_topk(q: torch.Tensor, c: torch.Tensor, *, k: int
@@ -58,19 +131,27 @@ def dense_topk(q: torch.Tensor, c: torch.Tensor, *, k: int
     if not 1 <= k <= min(n_docs, MAX_K):
         raise ValueError(f"dense_topk takes 1 <= k <= min(N, {MAX_K}), "
                          f"got k={k} with N={n_docs}")
-    k_pad = 1 << (k - 1).bit_length()
-    if (k_pad + TILE) * 8 + d * 4 > MAX_SMEM:
-        raise ValueError(f"dense_topk: d={d} needs more shared memory "
-                         f"than a block has")
-    vals = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
-    idxs = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
-    err = _entry(DTYPES[q.dtype])(
-        q.data_ptr(), c.data_ptr(), vals.data_ptr(), idxs.data_ptr(),
-        n_q, n_docs, d, k, k_pad, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dense_topk launch failed with CUDA error {err}")
-    dense_topk.launches += 1
+    p = plan(n_q, n_docs, d, k, sms=_sms(q.device.index))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # with splits, vals and idxs are allocated while stage 1 runs
+    if p.splits == 1:
+        vals = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
+        idxs = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
+        out = (vals.data_ptr(), idxs.data_ptr())
+    else:
+        part = torch.empty(2 * n_q * p.splits * k, dtype=torch.int32,
+                           device=q.device)
+        out = (part.data_ptr(), part.data_ptr() + 2 * part.numel())
+    _check(_entry(DTYPES[q.dtype])(
+        q.data_ptr(), c.data_ptr(), *out, n_q, n_docs, d, k, p.k_pad,
+        p.splits, p.per_split, p.stages, q.device.index, stream))
+    if p.splits > 1:
+        vals = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
+        idxs = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
+        _check(_entry("dense_topk_merge")(
+            *out, vals.data_ptr(), idxs.data_ptr(), n_q, p.splits, k,
+            p.k_pad, q.device.index, stream))
+    dense_topk.launches += p.launches
     return vals, idxs
 
 

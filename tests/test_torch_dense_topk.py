@@ -1,7 +1,9 @@
 """dense_topk of repro_torch: the plain version against the reference's
 Pallas kernel (interpret mode) on its own sweep, the tie order, k
-clamping, dispatch by device and the build helper.  The CUDA kernel
-itself is tested on the card by ``test_torch_dense_topk_cuda.py``."""
+clamping, dispatch by device and the build helper; the kernel's
+``plan`` and a plain emulation of its split-then-merge at that plan.
+The CUDA kernel itself is tested on the card by
+``test_torch_dense_topk_cuda.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +14,8 @@ from repro_torch import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.dense_topk import (dense_topk, dense_topk_op,
                                             dense_topk_ref)
+from repro_torch.kernels.dense_topk.kernel import (BN, CAND, MAX_K,
+                                                   MAX_SMEM, SMS, plan)
 
 torch.set_num_threads(1)
 
@@ -119,3 +123,119 @@ def test_build_finds_sources_and_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
+
+
+# -- the kernel's plan, and its split-then-merge emulated -----------------
+
+NEG_INF, IDX_PAD = -1e30, 2 ** 30
+
+
+@pytest.mark.parametrize("d", [16, 33, 128, 9000])
+@pytest.mark.parametrize("k", [1, 200, MAX_K])
+def test_plan_invariants(k, d):
+    for Q in (1, 16, 53, 300):
+        for N in (k, k + 1, 5000, 39_600, 8_841_823):
+            if N < k:
+                continue
+            p = plan(Q, N, d, k)
+            assert p.splits >= 1 and p.bq == 16
+            assert p.per_split % BN == 0
+            # every doc in exactly one split, and no split empty
+            assert (p.splits - 1) * p.per_split < N <= p.splits * p.per_split
+            assert p.k_pad >= k and p.k_pad & (p.k_pad - 1) == 0
+            assert p.k_pad < 2 * k or p.k_pad == 1
+            assert p.smem <= MAX_SMEM and p.merge_smem <= MAX_SMEM
+            assert p.launches == (1 if p.splits == 1 else 2)
+            assert (p.merge_smem == 0) == (p.splits == 1)
+            blocks = -(-Q // p.bq) * p.splits
+            assert p.splits == 1 or blocks <= SMS
+            if p.splits > 1:
+                assert p.per_split >= 4 * p.k_pad
+
+
+def test_plan_fills_the_card_at_the_main_shape():
+    p = plan(53, 39_600, 128, 200)        # Table 2's dense retrieval
+    assert (p.splits, p.per_split, p.k_pad, p.launches) == (31, 1280, 256, 2)
+    assert 4 * p.splits == 124            # of 132 SMs
+    p = plan(53, 8_841_823, 128, 200)     # MS MARCO passage's corpus
+    assert 4 * p.splits == 132
+    assert plan(1, 8, 16, 3).launches == 1
+    with pytest.raises(ValueError, match="k"):
+        plan(2, 2000, 16, MAX_K + 1)
+
+
+def _better(a, b):
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _best(entries, n):
+    return sorted(entries, key=lambda e: (-e[0], e[1]))[:n]
+
+
+def _split_then_merge(q, c, k, p):
+    """The kernel's two stages at plan ``p``, in plain Python over the
+    plain version's scores: each split walks its docs in tiles of BN in
+    ascending order and holds, per query row, its best k so far and the
+    docs better than the k-th of them, in k_pad + CAND slots; when the
+    next tile might not fit, it keeps only the best k.  At the split's
+    end its best k is its list; the merge takes the best k of all
+    lists."""
+    s = torch.matmul(q.float(), c.float().T).numpy()
+    N, cap = s.shape[1], p.k_pad + CAND
+    vals, idxs = [], []
+    for row in s:
+        lists = []
+        for lo in range(0, p.splits * p.per_split, p.per_split):
+            hi = min(N, lo + p.per_split)
+            held, thr = [], (NEG_INF, IDX_PAD)
+            for t0 in range(lo, hi, BN):
+                tile = range(t0, min(hi, t0 + BN))
+                held += [(float(row[g]), g) for g in tile
+                         if _better((float(row[g]), g), thr)]
+                assert len(held) <= cap
+                if len(held) > cap - BN:
+                    held = _best(held, k)
+                    thr = held[-1]
+            lists.append(_best(held, k))
+        lists = [_best(sum(lists, []), k)]
+        vals.append([v for v, _ in lists[0][:k]])
+        idxs.append([i for _, i in lists[0][:k]])
+    return (np.asarray(vals, np.float32), np.asarray(idxs, np.int32))
+
+
+@pytest.mark.parametrize("Q,N,d,k,dtype", DENSE_SWEEP)
+def test_split_then_merge_matches_reference_kernel(Q, N, d, k, dtype):
+    (jq, jc), (tq, tc) = _inputs(Q, N, d, k, dtype)
+    p = plan(Q, N, d, k)
+    ev, ei = _split_then_merge(tq, tc, k, p)
+    rv, ri = j_dense_topk_op(jq, jc, k=k, interpret=True)
+    vals, idxs = dense_topk_ref(tq, tc, k=k)
+    np.testing.assert_array_equal(ei, np.asarray(ri))
+    np.testing.assert_array_equal(ei, idxs.numpy())
+    np.testing.assert_array_equal(ev, vals.numpy())
+    np.testing.assert_allclose(ev, np.asarray(rv), atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("sms", [1, 3, SMS])
+def test_split_then_merge_ties_straddle_splits(sms):
+    """A 300-doc base repeated 4x, so each doc's copies lie in other
+    splits; small integer entries make every sum exact, so equal scores
+    are everywhere, not only between copies."""
+    rng = np.random.default_rng(15)
+    q = rng.integers(-3, 4, size=(3, 16)).astype(np.float32)
+    base = rng.integers(-3, 4, size=(300, 16)).astype(np.float32)
+    c = np.concatenate([base] * 4)
+    k = 40
+    p = plan(3, len(c), 16, k, sms=sms)
+    assert p.splits == {1: 1, 3: 3, SMS: 4}[sms]
+    ev, ei = _split_then_merge(torch.from_numpy(q), torch.from_numpy(c), k, p)
+    _, ri = j_dense_topk_op(jnp.asarray(q), jnp.asarray(c), k=k,
+                            interpret=True)
+    _, idxs = dense_topk_ref(torch.from_numpy(q), torch.from_numpy(c), k=k)
+    np.testing.assert_array_equal(ei, np.asarray(ri))
+    np.testing.assert_array_equal(ei, idxs.numpy())
+    for row in ei:
+        pos = {int(g): r for r, g in enumerate(row)}
+        for g in pos:                   # a copy ranks after every earlier one
+            for copy in range(g % 300, g, 300):
+                assert copy in pos and pos[copy] < pos[g]

@@ -11,14 +11,17 @@ import torch
 
 from repro_torch.kernels.dense_topk import (dense_topk, dense_topk_op,
                                             dense_topk_ref)
-from repro_torch.kernels.dense_topk.kernel import MAX_K
+from repro_torch.kernels.dense_topk.kernel import MAX_K, plan
 
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
 # (Q, N, d, k, dtype): the reference's sweep, then the limits: k at its
-# maximum, and a width whose shared memory passes the 48 KB default
+# maximum in one split and over many, a width of 9,000 (walked in chunks
+# of 32), N < k_pad, k = N, bf16 over many splits, Q not a multiple of
+# the block's 16 queries, and the main path's shape (Table 2's dense
+# retrieval) at its two k
 CASES = [
     (8, 256, 32, 10, "float32"),
     (5, 300, 33, 7, "float32"),
@@ -28,6 +31,13 @@ CASES = [
     (1, 8, 16, 3, "float32"),
     (4, 5000, 64, MAX_K, "float32"),
     (2, 700, 9000, 50, "float32"),
+    (4, 100_000, 64, MAX_K, "float32"),
+    (4, 150, 32, 130, "float32"),
+    (3, 700, 48, 700, "float32"),
+    (8, 20_000, 128, 50, "bfloat16"),
+    (53, 3000, 36, 10, "float32"),
+    (53, 39_600, 128, 200, "float32"),
+    (53, 39_600, 128, 100, "float32"),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 NEAR_TIE = 1e-5    # the two sum in other orders: neighbours this close may swap
@@ -57,7 +67,9 @@ def test_kernel_matches_plain_version(cuda, Q, N, d, k, dtype):
     vals, idxs = dense_topk_op(q, c, k=k)
     rv, ri = dense_topk_ref(q, c, k=k)
     torch.cuda.synchronize()
-    assert dense_topk.launches == before + 1
+    assert dense_topk.launches == before + plan(
+        Q, N, d, k, sms=torch.cuda.get_device_properties(cuda)
+        .multi_processor_count).launches
     rv, ri = rv.cpu().numpy(), ri.cpu().numpy()
     np.testing.assert_allclose(vals.cpu().numpy(), rv, atol=TOL[dtype])
     for r, j in zip(*np.nonzero(idxs.cpu().numpy() != ri)):
@@ -74,6 +86,26 @@ def test_duplicated_rows_put_the_lower_index_first(cuda):
     _, idxs = dense_topk(q, c, k=40)
     pos = idxs.cpu().argsort(dim=1)              # rank of each doc
     assert bool((pos[:, :20] < pos[:, 20:]).all())
+
+
+def test_copies_in_other_splits_come_out_lower_index_first(cuda):
+    """A 5,000-doc base repeated 8x: each doc's copies lie in other
+    splits.  Small integer entries make every sum exact, in the kernel
+    and in the plain version, so the two must agree exactly."""
+    rng = np.random.default_rng(12)
+    q = rng.integers(-3, 4, size=(4, 64)).astype(np.float32)
+    base = rng.integers(-3, 4, size=(5000, 64)).astype(np.float32)
+    q = torch.from_numpy(q).to(cuda)
+    c = torch.from_numpy(np.concatenate([base] * 8)).to(cuda)
+    assert plan(4, len(c), 64, 200).splits > 8
+    vals, idxs = dense_topk(q, c, k=200)
+    rv, ri = dense_topk_ref(q, c, k=200)
+    assert torch.equal(vals, rv) and torch.equal(idxs, ri)
+    for row in idxs.cpu().tolist():
+        pos = {g: r for r, g in enumerate(row)}
+        for g in pos:                   # every earlier copy ranks before it
+            assert all(pos.get(e, 10 ** 9) < pos[g]
+                       for e in range(g % 5000, g, 5000))
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):
