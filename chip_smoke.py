@@ -12,11 +12,13 @@ Phases, one output line or more each, the JSON result last:
    and ptxas's registers, shared memory and spills of each kernel;
 3. kernels: each kernel against its plain PyTorch version on the card —
    ``dense_topk`` at the reference's test shapes, a duplicated-rows tie
-   case, copies of docs in other corpus splits (exact), the main path's
-   shape at k 200 and 100 and MS MARCO passage's corpus size;
+   case, copies of docs in other corpus splits (exact), exact ties at
+   k 2,000 on the select path, the main path's shape at k 200, 100 and
+   2,000 and MS MARCO passage's corpus size at k 200 and 2,000;
    ``cachekey_hash`` on the
    reference's sweep, provenance rows and a wide batch, bit for bit,
-   and ``digest_bytes`` through it against the host FNV loop; then
+   ``digest_bytes`` through it against the host FNV loop and
+   ``digest_many`` against ``digest_bytes``; then
    ``flash_attention``, ``embedding_bag`` and ``bm25_block`` driven
    through their ``*_op`` entry points at the reference's sweeps,
    ``benchmarks/kernels_bench.py``'s shapes and the repo's model
@@ -25,7 +27,9 @@ Phases, one output line or more each, the JSON result last:
    must pick (``"wgmma"``, ``"decode"`` or ``"simt"``),
    and ``bm25_block`` over Table 2's 53 queries against
    ``BM25Retriever.score_query`` — with timings, the plain version's
-   and the PyTorch library call's where there is one;
+   and the PyTorch library call's where there is one, and for the small
+   kernels (``cachekey_hash``, ``bm25_block``) the device-only time
+   from ``torch.profiler`` beside the CUDA-event time;
 4. main path: the retrieve-and-rerank Experiment with BM25 and dense
    retrieval over ``msmarco_like(2, scale=1.0)`` at the cross-encoder's
    full width, once on the kernel path and once on the plain
@@ -35,7 +39,10 @@ Phases, one output line or more each, the JSON result last:
    precomputation through the plan compiler, whose node fingerprints
    the ``cachekey_hash`` kernel digests; plus a cold, then a hot
    ``ScorerCache`` around Mono), with the work each setting saves and
-   means equal to setting (1);
+   means equal to setting (1); ``cachekey_hash`` launches per plan (one
+   per (level, length) group of its batched digests) and per run, the
+   host ms of a plan's digests batched and row by row, and a check that
+   both give the same node fingerprints and plan id;
 6. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA
@@ -64,7 +71,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 # 32-bit integer xor/multiply: 64 per SM and clock, 132 SMs, 1.98 GHz
-INT32_OP_PER_S = 64 * 132 * 1.98e9
+CLOCK_HZ = 1.98e9
+INT32_OP_PER_S = 64 * 132 * CLOCK_HZ
 NEAR_TIE = 1e-5
 # MS MARCO passage's corpus (8,841,823 passages); its row is timed over
 # fewer repetitions, since the plain version sorts 53 x 8.8M scores
@@ -78,7 +86,9 @@ SWEEP = [(8, 256, 32, 10, "float32"), (5, 300, 33, 7, "float32"),
 # (N, L) of the reference's cachekey_hash sweep (tests/test_kernels.py),
 # then provenance rows (N = 1) and a wide batch
 HASH_SWEEP = [(1, 1), (10, 7), (256, 16), (300, 64), (1, 64), (1, 4096),
-              (65536, 64)]
+              (65536, 64), (513, 100), (1000, 37)]
+# k of the select path's dense_topk rows (above the filter path's 1,024)
+BIG_K = 2000
 TABLE2_SETTINGS = [(False, None), (True, None), (True, "cold"),
                    (True, "hot")]
 # (label, B, H, K, Sq, Sk, hd, causal, dtype, path): the reference's
@@ -239,8 +249,56 @@ def bound(n_bytes: float, n_ops: float, op_rate: float):
 def hash_bound(n: int, L: int):
     """(bound ms, what bounds it) of cachekey_hash on [n, L] tokens:
     each token read once and each [n, 2] lane pair written once, against
-    an xor and a multiply per byte and lane (16 per token)."""
-    return bound(4 * n * L + 8 * n, 16 * n * L, INT32_OP_PER_S)
+    an xor and a multiply per byte and lane (16 per token), and against
+    one row's chain: FNV-1a cannot be split along a row, so a row is 4*L
+    steps, each an xor and then a multiply that waits for it, at best
+    one dependent instruction a clock (1.98 GHz) whatever N is."""
+    ms, by = bound(4 * n * L + 8 * n, 16 * n * L, INT32_OP_PER_S)
+    chain_ms = 1e3 * 2 * 4 * L / CLOCK_HZ
+    return (chain_ms, "operations") if chain_ms > ms else (ms, by)
+
+
+def device_ms(torch, fn, name: str, reps: int = 20):
+    """Device-only ms per call of ``fn`` spent in kernels whose name
+    holds ``name``, from ``torch.profiler``'s ``key_averages()`` over
+    ``reps`` calls (no L2 flush); None where the profiler shows no
+    device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for e in prof.key_averages():
+        if name in e.key:
+            t = getattr(e, "device_time_total", None)
+            total_us += t if t is not None else \
+                getattr(e, "cuda_time_total", 0.0)
+    if total_us <= 0:
+        log(f"profiler: no device time for {name} (the row keeps the "
+            f"CUDA-event time alone)")
+        return None
+    return total_us / reps / 1e3
+
+
+def host_us(torch, fn, reps: int = 200) -> float:
+    """Host µs per call of ``fn``: the mean enqueue cost over ``reps``
+    calls with no synchronisation between them (host clock)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    per = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return per
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def topk_bound(Q: int, N: int, d: int, k: int, elt: int):
@@ -269,7 +327,10 @@ def time_topk(torch, card: str, label: str, q, c, k: int, tol: float,
     bound_ms, bound_by = topk_bound(Q, N, d, k, c.element_size())
     log(f"kernels: dense_topk {label} Q={Q} N={N} d={d} k={k}: "
         f"max_abs_err {err:.3g} (tol {tol}), near-tie ranks {near}; "
-        f"{p.splits} splits x {-(-Q // p.bq)} query tiles, {n} launches; "
+        f"{p.path} path, {p.splits} splits x {-(-min(Q, p.q_chunk or Q) // p.bq)} "
+        f"query tiles"
+        f"{f', {-(-Q // p.q_chunk)} query chunks' if p.q_chunk else ''}, "
+        f"{n} launches; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk(q @ c.T) "
         f"{library_ms:.4f} ms (yardstick only), bound {bound_ms * 1e3:.2f} "
         f"us ({bound_by}, {bound_ms / ms:.1%} of it); median of {reps}; "
@@ -333,13 +394,33 @@ def check_dense_topk(torch, card: str, mp) -> dict:
         f"exactly, {copies} of {ki.numel()} results are later copies, each "
         f"after every earlier one")
 
+    # the select path (k > 1,024): a 19,800-doc base repeated twice, so
+    # each doc's copy lies 19,800 later and k cuts through tied scores
+    q = torch.randint(-3, 4, (53, 128), generator=gen).float().to("cuda")
+    base = torch.randint(-3, 4, (19_800, 128), generator=gen).float()
+    c = base.repeat(2, 1).to("cuda")
+    p = plan(53, len(c), 128, BIG_K, sms=_sms(0))
+    kv, ki = dense_topk(q, c, k=BIG_K)
+    rv, ri = dense_topk_ref(q, c, k=BIG_K)
+    torch.cuda.synchronize()
+    if p.path != "select" or not (torch.equal(kv, rv) and
+                                  torch.equal(ki, ri)):
+        raise AssertionError(f"dense_topk k={BIG_K} ({p.path} path): "
+                             f"kernel and plain version differ on exact "
+                             f"integer scores")
+    log(f"kernels: dense_topk ties at k={BIG_K} ({p.path} path, "
+        f"{p.launches} launches; 19,800-doc base x 2, Q 53, d 128, integer "
+        f"entries): kernel equals the plain version exactly")
+
     q_main = mp.dense_enc.encode(mp.topics["query"].tolist())
     c_main = mp.dense_index.matrix
     entry = time_topk(torch, card, "main shape", q_main, c_main, max(CUTS),
                       2e-5)
     time_topk(torch, card, "main shape, hybrid's dense % 100", q_main,
               c_main, 100, 2e-5)
-    del q, c, base
+    time_topk(torch, card, f"main shape at k {BIG_K:,} (select path)",
+              q_main, c_main, BIG_K, 2e-5)
+    del q, c, base, kv, ki, rv, ri
     cg = torch.Generator(device="cuda").manual_seed(8)
     scale = 128 ** -0.25                          # scores O(1)
     q = torch.randn(53, 128, generator=cg, device="cuda") * scale
@@ -347,6 +428,8 @@ def check_dense_topk(torch, card: str, mp) -> dict:
         * scale
     time_topk(torch, card, "MS MARCO passage size", q, c, 200, 2e-5,
               reps=MSMARCO_REPS)
+    time_topk(torch, card, f"MS MARCO passage size at k {BIG_K:,} (select "
+              f"path)", q, c, BIG_K, 2e-5, reps=MSMARCO_REPS)
     del q, c
     torch.cuda.empty_cache()
     return entry
@@ -381,9 +464,14 @@ def check_cachekey_hash(torch, card: str) -> dict:
             bound_ms, bound_by = hash_bound(n, L)
             warm_ms = time_ms(torch, lambda: cachekey_hash(t),
                               flush_l2=False)
+            dev_ms = device_ms(torch, lambda: cachekey_hash(t),
+                               "cachekey_hash_kernel")
+            call_us = host_us(torch, lambda: cachekey_hash(t))
             timed[(n, L)] = (ms, plain_ms, bound_ms, bound_by)
             line += (f"; kernel {ms:.4f} ms ({warm_ms:.4f} ms with the "
-                     f"input in L2), plain {plain_ms:.4f} ms, bound "
+                     f"input in L2; device-only {fmt_ms(dev_ms)}, "
+                     f"profiler; host {call_us:.1f} us a call to enqueue), "
+                     f"plain {plain_ms:.4f} ms, bound "
                      f"{bound_ms * 1e3:.4f} us ({bound_by}), no library "
                      f"call; {card}")
         log(line)
@@ -402,6 +490,19 @@ def check_cachekey_hash(torch, card: str) -> dict:
     log(f"kernels: digest_bytes through cachekey_hash equals the host "
         f"FNV loop on {n_payloads} payloads of 0-20,000 bytes "
         f"({cachekey_hash.launches} launches so far)")
+    rng = np.random.default_rng(2)
+    payloads = [rng.bytes(int(rng.integers(0, 20001)))
+                for _ in range(n_payloads)]
+    payloads += payloads[:10]
+    before = cachekey_hash.launches
+    batch = prov.digest_many(payloads)
+    groups = len({-(-(len(p) + 8) // 256) for p in payloads})
+    if cachekey_hash.launches - before != groups or \
+            batch != [prov.digest_bytes(p) for p in payloads]:
+        raise AssertionError("digest_many: not one launch per length, or "
+                             "not digest_bytes row by row")
+    log(f"kernels: digest_many of {len(payloads)} payloads in "
+        f"{groups} launches equals digest_bytes row by row")
     # what one provenance digest costs the host end to end (copy in,
     # pad, launch, copy out with its sync), at a fingerprint's size
     payload = rng.bytes(200)
@@ -686,10 +787,14 @@ def check_bm25_block(torch, card: str, mp) -> dict:
             raise AssertionError(f"bm25_block {label} {(T, D)}: max_abs_err "
                                  f"{err} > {TOL_BM25}")
         ms = time_ms(torch, lambda: bm25_block(*tile, avg_dl=55.0))
+        dev_ms = device_ms(torch, lambda: bm25_block(*tile, avg_dl=55.0),
+                           "bm25_block_kernel") \
+            if label == "kernels_bench" else None
         plain_ms = time_ms(torch, lambda: bm25_block_ref(*tile, avg_dl=55.0))
         bound_ms, bound_by = bm25_bound([tile])
         log(f"kernels: bm25_block {label} T={T} D={D}: max_abs_err "
-            f"{err:.3g} (tol {TOL_BM25}), {n} launch; kernel {ms:.4f} ms, "
+            f"{err:.3g} (tol {TOL_BM25}), {n} launch; kernel {ms:.4f} ms"
+            f"{f' (device-only {fmt_ms(dev_ms)}, profiler)' if label == 'kernels_bench' else ''}, "
             f"plain {plain_ms:.4f} ms, no library call, bound "
             f"{bound_ms * 1e3:.4f} us ({bound_by}); {card}")
 
@@ -725,6 +830,10 @@ def check_bm25_block(torch, card: str, mp) -> dict:
         raise AssertionError(f"bm25_block Table 2: max_abs_err {err} > "
                              f"{TOL_BM25}")
     ms = time_ms(torch, lambda: [bm25_block(*t, **kw) for t in tiles])
+    dev_ms = device_ms(torch, lambda: [bm25_block(*t, **kw) for t in tiles],
+                       "bm25_block_kernel")
+    call_us = host_us(torch, lambda: [bm25_block(*t, **kw) for t in tiles],
+                      reps=20) / len(tiles)
     plain_ms = time_ms(torch, lambda: [bm25_block_ref(*t, **kw)
                                        for t in tiles])
     bound_ms, bound_by = bm25_bound(tiles)
@@ -734,18 +843,21 @@ def check_bm25_block(torch, card: str, mp) -> dict:
         f"{n} launches; score_query reproduced at its ids "
         f"(largest relative difference {worst_rel:.3g}, rtol 1e-4); "
         f"max_abs_err {err:.3g} against the plain version; all queries: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, "
-        f"bound {bound_ms * 1e3:.4f} us ({bound_by}); {card}")
+        f"kernel {ms:.4f} ms (device-only {fmt_ms(dev_ms)}, profiler; "
+        f"host {call_us:.1f} us a call to enqueue), "
+        f"plain {plain_ms:.4f} ms, no library call, bound "
+        f"{bound_ms * 1e3:.4f} us ({bound_by}); {card}")
     return {"launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
 
 
-def run_table2(torch, mp) -> dict:
+def run_table2(torch, card: str, mp) -> dict:
     """The paper's Table 2 in its four settings through the port's entry
-    points; raises unless the claims hold and every setting's means
-    equal setting (1)'s.  Returns the counts and the digests' word
-    counts seen in setting (2)."""
+    points; raises unless the claims hold, every setting's means equal
+    setting (1)'s, and setting (2)'s plan launched cachekey_hash once
+    per (level, length) group of its digests.  Returns the counts and
+    the largest digest batch, (rows, words)."""
     import repro_torch.caching.provenance as prov
     from repro_torch.caching import ScorerCache
     from repro_torch.core import Experiment
@@ -756,8 +868,8 @@ def run_table2(torch, mp) -> dict:
     build.mkdir(exist_ok=True)
     cache_root = tempfile.mkdtemp(prefix="table2-scorer-cache-",
                                   dir=str(build))
-    rows, words_seen = [], collections.Counter()
-    digest = prov._kernel_digest
+    rows, batches = [], []
+    digest_many = prov.digest_many
     try:
         for setting, (pre, cached) in enumerate(TABLE2_SETTINGS, start=1):
             bm25 = mp.index.bm25(num_results=max(CUTS))
@@ -774,11 +886,12 @@ def run_table2(torch, mp) -> dict:
             systems = [bm25 % k >> mp.tl >> stage % 10 >> mp.duo
                        for k in CUTS]
             mono0 = mp.mono.invocations
-            if setting == 2:             # the digests' row widths
-                def recording(words):
-                    words_seen[len(words)] += 1
-                    return digest(words)
-                prov._kernel_digest = recording
+            if setting == 2:             # the digest batches' row widths
+                def recording(payloads):
+                    batches.append(collections.Counter(
+                        len(prov._bucket_words(p)) for p in payloads))
+                    return digest_many(payloads)
+                prov.digest_many = recording
             cachekey_hash.launches = 0
             t = time.perf_counter()
             res = Experiment(systems, mp.topics, mp.qrels, MEASURES,
@@ -787,7 +900,7 @@ def run_table2(torch, mp) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             launches = cachekey_hash.launches
-            prov._kernel_digest = digest
+            prov.digest_many = digest_many
             hits, misses = (cache.stats.hits, cache.stats.misses) \
                 if cache is not None else (None, None)
             if cache is not None:
@@ -804,7 +917,7 @@ def run_table2(torch, mp) -> dict:
             log("table2: " + json.dumps(
                 {k: v for k, v in rows[-1].items() if k != "res"}))
     finally:
-        prov._kernel_digest = digest
+        prov.digest_many = digest_many
         shutil.rmtree(cache_root, ignore_errors=True)
 
     base = rows[0]["res"]
@@ -838,11 +951,21 @@ def run_table2(torch, mp) -> dict:
     if rows[0]["cachekey_hash_launches"] != 0:
         raise AssertionError("table2: setting 1 has no plan, yet "
                              "digests ran")
-    log(f"table2: digest row widths in setting 2 (words: count) "
-        f"{dict(sorted(words_seen.items()))}")
-    # compiling setting (2)'s plan: lowering, passes and the node
-    # fingerprints, with the digests on the card and on the CPU
+    groups = sum(len(b) for b in batches)
+    if rows[1]["cachekey_hash_launches"] != groups:
+        raise AssertionError(f"table2: {rows[1]['cachekey_hash_launches']} "
+                             f"cachekey_hash launches in setting 2, not its "
+                             f"{groups} (level, length) groups")
+    log(f"table2: cachekey_hash launches per plan {groups} (setting 2: "
+        f"{len(batches)} digest batches, rows by width in words "
+        f"{[dict(sorted(b.items())) for b in batches]}; row by row it took "
+        f"{sum(sum(b.values()) for b in batches)}); per run "
+        f"{sum(r['cachekey_hash_launches'] for r in rows)}")
+    # compiling setting (2)'s plan, with the digests on the card and on
+    # the CPU; then its digests alone, batched and row by row, which must
+    # give the same node fingerprints and plan id
     from repro_torch.core import ExecutionPlan
+    from repro_torch.core.cost import plan_fingerprints
     systems = [mp.index.bm25(num_results=max(CUTS)) % k >> mp.tl
                >> mp.mono % 10 >> mp.duo for k in CUTS]
     for device in ("cuda", "cpu", "cuda"):
@@ -855,8 +978,55 @@ def run_table2(torch, mp) -> dict:
                 f"{device}: {(time.perf_counter() - t) * 1e3:.2f} ms")
         finally:
             prov.set_digest_device(prev)
-    return {"rows": rows, "words": words_seen,
+    graph = ExecutionPlan(systems).graph
+    fps, plan_id = plan_fingerprints(graph)
+    if (fps, plan_id) != row_by_row_fingerprints(graph):
+        raise AssertionError("table2: the batched node fingerprints or plan "
+                             "id differ from the row-by-row digests")
+    host = {}
+    for how, fn in (("batched", plan_fingerprints),
+                    ("row by row", row_by_row_fingerprints),
+                    ("batched", plan_fingerprints)):
+        times = []
+        for _ in range(20):
+            t = time.perf_counter()
+            fn(graph)
+            times.append(time.perf_counter() - t)
+        host.setdefault(how, []).append(statistics.median(times) * 1e3)
+    log(f"table2: a plan's digests ({len(fps)} node fingerprints and the "
+        f"plan id) equal the row-by-row digest_bytes results; host ms, "
+        f"median of 20: batched {host['batched'][0]:.3f} / "
+        f"{host['batched'][1]:.3f}, row by row {host['row by row'][0]:.3f}"
+        f"; {card}")
+    width, n = max(((L, n) for b in batches for L, n in b.items()),
+                   key=lambda x: x[1])
+    return {"rows": rows, "batch": (n, width), "groups": groups,
             "launches": sum(r["cachekey_hash_launches"] for r in rows)}
+
+
+def row_by_row_fingerprints(graph):
+    """(node fingerprints, plan id) one ``digest_bytes`` at a time, as
+    the reference computes them (its ``core/cost.py``
+    ``compute_node_fingerprints`` and ``core/plan.py`` plan id)."""
+    from repro_torch.caching.auto import derive_fingerprint
+    from repro_torch.caching.provenance import combine_fingerprints
+    fps = {graph.source.id: combine_fingerprints("plan-source")}
+    for node in graph.nodes:
+        if node.kind == "source":
+            continue
+        in_fps = [fps[i.id] for i in node.inputs]
+        if node.kind == "combine" and getattr(node.stage, "commutative",
+                                              False):
+            stage_fp = combine_fingerprints("combine",
+                                            type(node.stage).__name__)
+            in_fps = sorted(in_fps)
+        else:
+            stage_fp = derive_fingerprint(node.stage) \
+                or combine_fingerprints("sig", repr(node.stage))
+        fps[node.id] = combine_fingerprints("node", node.kind, stage_fp,
+                                            *in_fps)
+    return fps, combine_fingerprints(
+        "plan", *[fps[t.id] for t in graph.terminals])
 
 
 def start(torch) -> bool:
@@ -952,22 +1122,25 @@ def main() -> int:
 
     # -- 5. Table 2 ---------------------------------------------------------
     t = time.perf_counter()
-    t2 = run_table2(torch, mp)
+    t2 = run_table2(torch, card, mp)
     log(f"table2: four settings in {time.perf_counter() - t:.1f} s, "
         f"cachekey_hash.launches {t2['launches']}")
 
-    # the hash kernel at the main path's most frequent digest width
-    L_main = t2["words"].most_common(1)[0][0]
-    tok = torch.randint(-2**31, 2**31, (1, L_main),
+    # the hash kernel at the main path's largest digest batch
+    n_main, L_main = t2["batch"]
+    tok = torch.randint(-2**31, 2**31, (n_main, L_main),
                         generator=torch.Generator().manual_seed(3),
                         dtype=torch.int64).to(torch.int32).to("cuda")
     if not torch.equal(cachekey_hash(tok), cachekey_hash_ref(tok)):
-        raise AssertionError(f"cachekey_hash N=1 L={L_main} differs")
+        raise AssertionError(f"cachekey_hash N={n_main} L={L_main} differs")
     h_ms = time_ms(torch, lambda: cachekey_hash(tok))
+    h_dev = device_ms(torch, lambda: cachekey_hash(tok),
+                      "cachekey_hash_kernel")
     h_plain = time_ms(torch, lambda: cachekey_hash_ref(tok))
-    h_bound, h_by = hash_bound(1, L_main)
-    log(f"kernels: cachekey_hash main shape N=1 L={L_main}: kernel "
-        f"{h_ms:.4f} ms, plain {h_plain:.4f} ms, bound "
+    h_bound, h_by = hash_bound(n_main, L_main)
+    log(f"kernels: cachekey_hash main shape, a plan's largest digest batch "
+        f"N={n_main} L={L_main}: kernel {h_ms:.4f} ms (device-only "
+        f"{fmt_ms(h_dev)}, profiler), plain {h_plain:.4f} ms, bound "
         f"{h_bound * 1e3:.4f} us ({h_by}); timed at (1, 64): "
         f"{hash_timed[(1, 64)][0]:.4f} ms, at (65536, 64): "
         f"{hash_timed[(65536, 64)][0]:.4f} ms; {card}")

@@ -18,7 +18,9 @@ corpus or code change.  This module closes that gap:
   The execution
   planner extends this to *node* fingerprints by folding in the
   fingerprints of all upstream nodes, so invalidation propagates
-  downstream exactly as results do.
+  downstream exactly as results do; it digests a plan's fingerprints
+  level by level through :func:`digest_many`, one launch per row
+  length of a level, with the digests of :func:`digest_bytes`.
 
 * **Manifests** — every cache directory carries a versioned
   ``manifest.json`` recording the fingerprint, cache family, storage
@@ -44,7 +46,7 @@ import json
 import os
 import time
 from dataclasses import asdict, dataclass, field, fields
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,8 +56,9 @@ from .backends import atomic_write_bytes
 __all__ = [
     "MANIFEST_NAME", "MANIFEST_VERSION", "PLAN_MANIFEST_VERSION",
     "PLANS_SUBDIR", "ProvenanceError", "ManifestError", "StaleCacheError",
-    "canonical_bytes", "digest_bytes", "class_source_hash",
-    "transformer_fingerprint", "combine_fingerprints", "CacheManifest",
+    "canonical_bytes", "digest_bytes", "digest_many", "class_source_hash",
+    "transformer_fingerprint", "fingerprint_payload",
+    "combine_fingerprints", "combine_payload", "CacheManifest",
     "manifest_path", "plan_manifest_dir", "save_plan_manifest",
     "iter_plan_manifests", "set_digest_device",
 ]
@@ -186,9 +189,9 @@ def _kernel_digest(words: np.ndarray) -> bytes:
     return out.astype("<i4").tobytes()       # lane 0 then lane 1, LE
 
 
-def digest_bytes(data: bytes) -> str:
-    """16-hex-char dual-lane FNV digest of ``data`` (length-prefixed,
-    zero-padded to the kernel's word bucket)."""
+def _bucket_words(data: bytes) -> np.ndarray:
+    """``data`` as the kernel's row: length-prefixed, zero-padded to
+    whole uint32 words and then to a multiple of the word bucket."""
     buf = len(data).to_bytes(8, "little") + data
     buf += b"\x00" * ((-len(buf)) % 4)
     words = np.frombuffer(buf, dtype="<u4")
@@ -196,7 +199,46 @@ def digest_bytes(data: bytes) -> str:
     if target > len(words):
         words = np.concatenate(
             [words, np.zeros(target - len(words), dtype="<u4")])
-    return _kernel_digest(words).hex()
+    return words
+
+
+def digest_bytes(data: bytes) -> str:
+    """16-hex-char dual-lane FNV digest of ``data`` (length-prefixed,
+    zero-padded to the kernel's word bucket)."""
+    return _kernel_digest(_bucket_words(data)).hex()
+
+
+def digest_many(payloads: Sequence[bytes]) -> List[str]:
+    """``[digest_bytes(p) for p in payloads]``, bit for bit, in one
+    batch: the rows, bucketed as ``digest_bytes`` buckets them, are
+    packed into one [N_L, L] block per distinct length L, all blocks in
+    one host buffer; one host-to-device copy, one ``cachekey_hash_op``
+    launch per distinct L into one [N, 2] output, one device-to-host
+    copy.  On the digest device, as ``digest_bytes``."""
+    if not payloads:
+        return []
+    from ..device import resolve_device
+    from ..kernels.cachekey_hash.ops import cachekey_hash_op
+    rows = [_bucket_words(p) for p in payloads]
+    groups: Dict[int, List[int]] = {}
+    for i, w in enumerate(rows):
+        groups.setdefault(len(w), []).append(i)
+    order = [i for idx in groups.values() for i in idx]
+    flat = np.concatenate([rows[i] for i in order]).view(np.int32)
+    device = resolve_device(_DIGEST_DEVICE)
+    tokens = torch.from_numpy(flat).to(device)
+    out = torch.empty((len(rows), 2), dtype=torch.int32, device=device)
+    at = row = 0
+    for L, idx in groups.items():
+        # every block starts at a multiple of the bucket: 16-byte aligned
+        cachekey_hash_op(tokens[at:at + len(idx) * L].view(len(idx), L),
+                         out[row:row + len(idx)])
+        at, row = at + len(idx) * L, row + len(idx)
+    lanes = out.cpu().numpy().astype("<i4")
+    digests: List[str] = [""] * len(rows)
+    for r, i in enumerate(order):
+        digests[i] = lanes[r].tobytes().hex()
+    return digests
 
 
 # ---------------------------------------------------------------------------
@@ -232,21 +274,32 @@ def transformer_fingerprint(t: Any) -> str:
     Only as stable as the signature: signatures embedding ``id()`` or
     default ``object.__repr__`` addresses yield per-process values.
     """
+    return digest_bytes(fingerprint_payload(t))
+
+
+def fingerprint_payload(t: Any) -> bytes:
+    """The bytes :func:`transformer_fingerprint` digests, for callers
+    that digest many fingerprints in one :func:`digest_many` batch."""
     cls = type(t)
     sig = t.signature() if hasattr(t, "signature") else repr(t)
     extras: Tuple = ()
     fe = getattr(t, "fingerprint_extras", None)
     if callable(fe):
         extras = tuple(fe())
-    payload = ("transformer/v1", cls.__module__, cls.__qualname__,
-               class_source_hash(cls), sig, extras)
-    return digest_bytes(canonical_bytes(payload))
+    return canonical_bytes(("transformer/v1", cls.__module__,
+                            cls.__qualname__, class_source_hash(cls), sig,
+                            extras))
 
 
 def combine_fingerprints(*parts: Any) -> str:
     """Fold fingerprints/tokens into one digest (plan-node provenance:
     a node's fingerprint folds its stage's over its inputs')."""
-    return digest_bytes(canonical_bytes(("combine/v1",) + parts))
+    return digest_bytes(combine_payload(*parts))
+
+
+def combine_payload(*parts: Any) -> bytes:
+    """The bytes :func:`combine_fingerprints` digests."""
+    return canonical_bytes(("combine/v1",) + parts)
 
 
 # ---------------------------------------------------------------------------

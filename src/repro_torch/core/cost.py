@@ -43,7 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from .ir import IRNode, PlanGraph
 
-__all__ = ["CostModel", "CostContext", "compute_node_fingerprints",
+__all__ = ["CostModel", "CostContext", "plan_fingerprints",
            "fold_costs", "annotate_node_actuals", "analytic_stage_cost",
            "estimate_stage_cost", "should_prefetch",
            "PREFETCH_MIN_ROUND_TRIP_S", "EWMA_ALPHA", "DEFAULT_STAGE_COST_S",
@@ -67,41 +67,70 @@ def _round_cost(x: float) -> float:
     return round(float(x), COST_DECIMALS)
 
 
-def compute_node_fingerprints(graph: PlanGraph) -> Dict[int, str]:
-    """Provenance fingerprint per node (id-keyed): the stage fingerprint
-    folded over the input nodes' fingerprints, bottom-up.
+def plan_fingerprints(graph: PlanGraph) -> Tuple[Dict[int, str], str]:
+    """(node fingerprints, plan id), digest for digest those of the
+    reference's row-by-row ``compute_node_fingerprints`` and plan id.
 
-    For *commutative* combine nodes the input fingerprints fold in
-    sorted order, so ``a + b`` and ``b + a`` — and a combine whose
-    operands the ``operand-order`` pass swapped — carry the same
+    A node's fingerprint is its stage's folded over its input nodes',
+    bottom-up.  For *commutative* combine nodes the input fingerprints
+    fold in sorted order, so ``a + b`` and ``b + a`` — and a combine
+    whose operands the ``operand-order`` pass swapped — carry the same
     fingerprint.  This keeps measured costs (and cache-manifest
     provenance) stable under the one rewrite that is allowed to change
     physical operand order without changing results.
-    """
-    from ..caching.auto import derive_fingerprint
-    from ..caching.provenance import combine_fingerprints
-    fps: Dict[int, str] = {
-        graph.source.id: combine_fingerprints("plan-source")}
-    # graph.nodes is topological — every input precedes its consumer
-    for node in graph.nodes:
-        if node.kind == "source":
-            continue
-        in_fps = [fps[i.id] for i in node.inputs]
+
+    The digests go level by level in :func:`digest_many` batches: first
+    the source's and every stage's payload, then one batch per
+    topological depth of the ``combine/v1`` node folds, then the plan
+    id, which folds the terminals' fingerprints.  A stage whose class
+    overrides ``fingerprint()`` is asked directly."""
+    from ..caching.auto import fingerprint_request
+    from ..caching.provenance import combine_payload, digest_many
+    nodes = [n for n in graph.nodes if n.kind != "source"]
+    # level 0: the source and the stages
+    stage_fps: Dict[int, str] = {}
+    keys, payloads = [], []
+    for node in nodes:
         if node.kind == "combine" and getattr(node.stage, "commutative",
                                               False):
             # the binary stage's own signature() embeds its operands'
             # signatures *in order*; the operands are already captured
             # by the (sorted) input fingerprints, so key the stage by
             # class alone — same symmetrization canon_key uses
-            stage_fp = combine_fingerprints("combine",
-                                            type(node.stage).__name__)
-            in_fps = sorted(in_fps)
+            req = combine_payload("combine", type(node.stage).__name__)
         else:
-            stage_fp = derive_fingerprint(node.stage) \
-                or combine_fingerprints("sig", repr(node.stage))
-        fps[node.id] = combine_fingerprints(
-            "node", node.kind, stage_fp, *in_fps)
-    return fps
+            req = fingerprint_request(node.stage) \
+                or combine_payload("sig", repr(node.stage))
+        if isinstance(req, str):
+            stage_fps[node.id] = req
+        else:
+            keys.append(node.id)
+            payloads.append(req)
+    digests = digest_many([combine_payload("plan-source")] + payloads)
+    fps: Dict[int, str] = {graph.source.id: digests[0]}
+    stage_fps.update(zip(keys, digests[1:]))
+    # then the node folds, one batch per depth (graph.nodes is
+    # topological — every input precedes its consumer)
+    depth = {graph.source.id: 0}
+    levels: Dict[int, list] = {}
+    for node in nodes:
+        depth[node.id] = 1 + max((depth[i.id] for i in node.inputs),
+                                 default=0)
+        levels.setdefault(depth[node.id], []).append(node)
+    for d in sorted(levels):
+        level = levels[d]
+        folds = []
+        for node in level:
+            in_fps = [fps[i.id] for i in node.inputs]
+            if node.kind == "combine" and getattr(node.stage, "commutative",
+                                                  False):
+                in_fps = sorted(in_fps)
+            folds.append(combine_payload("node", node.kind,
+                                         stage_fps[node.id], *in_fps))
+        fps.update((n.id, fp) for n, fp in zip(level, digest_many(folds)))
+    plan_id = digest_many([combine_payload(
+        "plan", *[fps[t.id] for t in graph.terminals])])[0]
+    return fps, plan_id
 
 
 # host-side roofline priors for the cost model: sustained throughput of
@@ -269,7 +298,7 @@ class CostContext:
     """Everything a cost-aware pass needs, attached as ``graph.cost``."""
 
     model: CostModel = field(default_factory=CostModel)
-    #: node id → provenance fingerprint (``compute_node_fingerprints``)
+    #: node id → provenance fingerprint (``plan_fingerprints``)
     fps: Dict[int, str] = field(default_factory=dict)
     #: resolved backend selector of planner-inserted caches, if any
     backend: Optional[str] = None

@@ -49,7 +49,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
-from .cost import CostContext, CostModel, compute_node_fingerprints, \
+from .cost import CostContext, CostModel, plan_fingerprints, \
     fold_costs, _round_cost
 from .executor import _Recorder, resolve_n_shards, run_concurrent, \
     run_sequential
@@ -159,6 +159,7 @@ class ExecutionPlan:
         self.nodes_total_naive = sum(plan_size(p) for p in self.pipelines)
 
         self._node_fps: Optional[Dict[int, str]] = None
+        self._plan_id: Optional[str] = None
 
         # -- layer 2: optimizer (structural pre-memo passes) ---------------
         pre = [name for name in passes
@@ -233,7 +234,7 @@ class ExecutionPlan:
         measured costs — are invariant under the ``operand-order``
         rewrite.  Deterministic across processes."""
         if self._node_fps is None:
-            self._node_fps = compute_node_fingerprints(self.graph)
+            self._node_fps, self._plan_id = plan_fingerprints(self.graph)
         return self._node_fps
 
     # -- cost layer --------------------------------------------------------
@@ -254,11 +255,9 @@ class ExecutionPlan:
         """The plan's self-describing record: structure, provenance,
         optimizer accounting, in the reference's plan-manifest format.
         Rendered by ``explain()``."""
-        from ..caching.provenance import (PLAN_MANIFEST_VERSION,
-                                          combine_fingerprints)
+        from ..caching.provenance import PLAN_MANIFEST_VERSION
         fps = self.node_fingerprints()
-        plan_id = combine_fingerprints(
-            "plan", *[fps[t.id] for t in self.graph.terminals])
+        plan_id = self._plan_id      # the fingerprints' last level
         nodes = []
         for node in self.graph.nodes:
             if node.kind == "source":

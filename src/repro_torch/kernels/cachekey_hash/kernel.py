@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -28,9 +29,12 @@ def _entry():
     return fn
 
 
-def cachekey_hash(tokens: torch.Tensor) -> torch.Tensor:
+def cachekey_hash(tokens: torch.Tensor, out: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """tokens [N, L] int32, contiguous, on a CUDA device, N >= 1 ->
-    [N, 2] int32 holding the two uint32 FNV-1a lanes' bits."""
+    [N, 2] int32 holding the two uint32 FNV-1a lanes' bits, written to
+    ``out`` (a contiguous [N, 2] int32 tensor on the same device) when
+    given."""
     if tokens.device.type != "cuda":
         raise ValueError(f"cachekey_hash needs a CUDA tensor, got "
                          f"{tokens.device}")
@@ -43,7 +47,14 @@ def cachekey_hash(tokens: torch.Tensor) -> torch.Tensor:
     if n_rows < 1 or n_rows * max(n_cols, 1) >= 1 << 31:
         raise ValueError(f"cachekey_hash takes 1 <= N and N*L < 2^31, got "
                          f"{tuple(tokens.shape)}")
-    out = torch.empty((n_rows, 2), dtype=torch.int32, device=tokens.device)
+    if out is None:
+        out = torch.empty((n_rows, 2), dtype=torch.int32,
+                          device=tokens.device)
+    elif (out.shape != (n_rows, 2) or out.dtype != torch.int32 or
+          out.device != tokens.device or not out.is_contiguous()):
+        raise ValueError(f"cachekey_hash out must be a contiguous [N, 2] "
+                         f"int32 tensor on {tokens.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
     err = _entry()(tokens.data_ptr(), out.data_ptr(), n_rows, n_cols,
                    tokens.device.index,
                    torch.cuda.current_stream(tokens.device).cuda_stream)

@@ -58,6 +58,14 @@
 //    when S = 1): the same exact selection, block-wide, over the S x k
 //    candidates, then one bitonic sort of the k winners.  Ties, across
 //    splits too, come out lower index first.
+// 4. k above 1,024 (the large-k path, `dense_topk_large_*`): a row's
+//    k_pad + 256 slots no longer fit a block.  Stage 1 runs in score mode
+//    and writes a query chunk's scores to a buffer in device memory (the
+//    wrapper's `plan` keeps a chunk's buffer under 1 GiB); an exact radix
+//    select over the same order-preserving keys finds each row's k-th key,
+//    compacts the docs above it and the lowest-index docs tied at it in
+//    ascending doc order, and a bitonic sort orders the k winners.  Same
+//    total order, same exact ties, any k <= N.
 //
 // Shared memory: stage 1 on the TMA path 1 KB (alignment) + ns x 18,448 B
 // (stages and their barriers) + 16 x (k_pad + 256) x 8 B of rows, 137 KB
@@ -619,6 +627,25 @@ __device__ __forceinline__ void write_rows(Rows& w, float* rows_v,
   }
 }
 
+// The large-k path's stage 1: a tile's scores into the [n_q, n_docs]
+// buffer, lane l writing docs l, l + 32, l + 64, l + 96 (coalesced).
+__device__ __forceinline__ void write_scores(const Rows& w,
+                                             float* __restrict__ scores,
+                                             int r0, int q0, int n_q,
+                                             int n_docs, int doc0, int hi,
+                                             int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (q0 + r0 + r >= n_q) continue;
+    float* out = scores + static_cast<size_t>(q0 + r0 + r) * n_docs;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int doc = doc0 + lane + 32 * j;
+      if (doc < hi) out[doc] = w.acc[r][j];
+    }
+  }
+}
+
 // Docs [lo, hi) of split blockIdx.y.
 __device__ __forceinline__ void split_range(int n_docs, int per_split,
                                             int& lo, int& hi) {
@@ -630,7 +657,7 @@ __device__ __forceinline__ void split_range(int n_docs, int per_split,
 
 // Stage 1 on the register path: 8 warps, two stages, the next step's
 // loads in registers during this step's products, one barrier a step.
-template <typename T>
+template <typename T, bool kScores>
 __global__ void __launch_bounds__(kThreads)
 dense_topk_select_kernel(const T* __restrict__ q, const T* __restrict__ c,
                          float* __restrict__ out_v, int* __restrict__ out_i,
@@ -638,7 +665,7 @@ dense_topk_select_kernel(const T* __restrict__ q, const T* __restrict__ c,
                          int per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* stages = reinterpret_cast<float*>(smem);       // [2][kStageFloats]
-  const int cap = k_pad + kCand;
+  const int cap = kScores ? 0 : k_pad + kCand;
   float* rows_v = stages + 2 * kStageFloats;            // [kBQ][cap]
   int* rows_i = reinterpret_cast<int*>(rows_v + kBQ * cap);
 
@@ -670,21 +697,29 @@ dense_topk_select_kernel(const T* __restrict__ q, const T* __restrict__ c,
     const float* cb = stages + (st % 2) * kStageFloats;
     products<false>(cb, cb + kBN * kLd, r0, lane, w);
     if (ch == n_chunks - 1) {
-      filter_tile(w, rows_v, rows_i, cap, r0, q0, n_q, lo + tile * kBN, hi,
-                  k, k_pad, lane);
+      if constexpr (kScores) {
+        write_scores(w, out_v, r0, q0, n_q, n_docs, lo + tile * kBN, hi,
+                     lane);
+      } else {
+        filter_tile(w, rows_v, rows_i, cap, r0, q0, n_q, lo + tile * kBN,
+                    hi, k, k_pad, lane);
+      }
     }
     if (st + 1 < n_steps) {
       store_regs<T>(stages + ((st + 1) % 2) * kStageFloats, cr, qr);
     }
   }
-  write_rows(w, rows_v, rows_i, cap, r0, q0, n_q, k, k_pad, out_v, out_i,
-             lane);
+  if constexpr (!kScores) {
+    write_rows(w, rows_v, rows_i, cap, r0, q0, n_q, k, k_pad, out_v, out_i,
+               lane);
+  }
 }
 
 // Stage 1 on the fp32 path: warp 8 is the producer, one thread of which
 // keeps ns - 1 steps of TMA loads in flight; the 8 consumer warps wait
 // on a stage's "full" barrier and release it on its "empty" one, each at
 // its own pace, with no block-wide barrier in the loop.
+template <bool kScores>
 __global__ void __launch_bounds__(kThreads + 32, 1)
 dense_topk_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_c,
@@ -695,7 +730,7 @@ dense_topk_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // 128-byte swizzled boxes want 1024-byte aligned stages
   unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
   float* stages = reinterpret_cast<float*>(smem);       // [ns][kTmaStageFloats]
-  const int cap = k_pad + kCand;
+  const int cap = kScores ? 0 : k_pad + kCand;
   float* rows_v = stages + ns * kTmaStageFloats;        // [kBQ][cap]
   int* rows_i = reinterpret_cast<int*>(rows_v + kBQ * cap);
   const uint32_t full0 = smem_u32(rows_i + kBQ * cap);  // ns full, ns empty
@@ -747,12 +782,19 @@ dense_topk_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * s);
     if (ch == n_chunks - 1) {
-      filter_tile(w, rows_v, rows_i, cap, r0, q0, n_q, lo + tile * kBN, hi,
-                  k, k_pad, lane);
+      if constexpr (kScores) {
+        write_scores(w, out_v, r0, q0, n_q, n_docs, lo + tile * kBN, hi,
+                     lane);
+      } else {
+        filter_tile(w, rows_v, rows_i, cap, r0, q0, n_q, lo + tile * kBN,
+                    hi, k, k_pad, lane);
+      }
     }
   }
-  write_rows(w, rows_v, rows_i, cap, r0, q0, n_q, k, k_pad, out_v, out_i,
-             lane);
+  if constexpr (!kScores) {
+    write_rows(w, rows_v, rows_i, cap, r0, q0, n_q, k, k_pad, out_v, out_i,
+               lane);
+  }
 }
 
 // Block-wide sum of one int a thread; `red` holds a slot a warp.
@@ -868,6 +910,310 @@ dense_topk_merge_kernel(const float* __restrict__ part_v,
   }
 }
 
+// ---- the large-k path: exact radix select over a score buffer ------------
+//
+// For k above what a row's k_pad + 256 slots in shared memory hold, stage 1
+// (in score mode) writes a query chunk's scores to a buffer, and each row's
+// k best are found by an exact radix select over the order-preserving
+// score keys, 8 bits a pass from the top:
+// 1. `topk_hist_kernel`, 4 launches: pass p histograms digit p of the keys
+//    whose higher digits equal the k-th key's so far, per slice of kSlice
+//    docs (per-warp histograms in shared memory), summed into the row's
+//    [4][256] counts in device memory by integer atomics, so the counts do
+//    not depend on the order.  Every block first replays the earlier
+//    passes' counts (`resolve`) to know those digits.
+// 2. `topk_count_kernel`: with the k-th key V known, each slice counts its
+//    keys above V and equal to V.
+// 3. `topk_compact_kernel`: of the keys equal to V, the rem lowest indices
+//    win (rem = k minus the keys above V).  A doc's place among the
+//    winners is (keys above V before it) + min(keys equal to V before it,
+//    rem), from the slices' counts and a block scan, so the winners land
+//    in ascending doc order with no atomics.
+// 4. `topk_sort_local_kernel` and `topk_sort_step_kernel`: a bitonic sort of
+//    the k_pad winner slots (empty slots: key 0, IDX_PAD) by key, then
+//    index: strides below kSortChunk in shared memory, longer ones one
+//    launch each; the last launch writes the values and indices.
+constexpr int kSelThreads = 256;
+constexpr int kSlice = 8192;           // docs a select block walks
+constexpr int kSortChunk = 8192;       // entries a sort block holds
+constexpr int kSortThreads = 1024;
+
+__device__ __forceinline__ bool key_better(unsigned ka, int ia, unsigned kb,
+                                           int ib) {
+  return ka > kb || (ka == kb && ia < ib);
+}
+
+// The warp replays `passes` passes of the row's counts hist[p][256]: the
+// top digits of the k-th key (prefix) and how many keys with that prefix
+// still have to be taken (rem >= 1).  All 32 lanes get the result.
+__device__ void resolve(const unsigned* __restrict__ hist, int passes, int k,
+                        unsigned& prefix, int& rem) {
+  const int lane = threadIdx.x % 32;
+  prefix = 0;
+  rem = k;
+  for (int p = 0; p < passes; ++p) {
+    unsigned c[8], sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {        // lane 0 holds the highest digits
+      c[j] = hist[p * 256 + 255 - (lane * 8 + j)];
+      sum += c[j];
+    }
+    unsigned incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += o;
+    }
+    const unsigned need = static_cast<unsigned>(rem);
+    const int src = __ffs(__ballot_sync(0xffffffffu, incl >= need)) - 1;
+    int digit = 0;
+    unsigned above = 0;
+    if (lane == src) {
+      unsigned run = incl - sum;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (run + c[j] >= need) {
+          digit = 255 - (lane * 8 + j);
+          above = run;
+          break;
+        }
+        run += c[j];
+      }
+    }
+    digit = __shfl_sync(0xffffffffu, digit, src);
+    above = __shfl_sync(0xffffffffu, above, src);
+    prefix = (prefix << 8) | static_cast<unsigned>(digit);
+    rem -= static_cast<int>(above);
+  }
+}
+
+// Grid (slices, rows).  Pass p of the radix select.
+__global__ void __launch_bounds__(kSelThreads)
+topk_hist_kernel(const float* __restrict__ scores, unsigned* __restrict__ hist,
+                 int n_docs, int k, int pass) {
+  __shared__ unsigned h[kSelThreads / 32][256];
+  __shared__ unsigned s_prefix;
+  const size_t row = blockIdx.y;
+  unsigned* hrow = hist + row * 4 * 256;
+  for (int t = threadIdx.x; t < kSelThreads / 32 * 256; t += kSelThreads) {
+    (&h[0][0])[t] = 0;
+  }
+  if (threadIdx.x < 32) {
+    unsigned prefix;
+    int rem;
+    resolve(hrow, pass, k, prefix, rem);
+    if (threadIdx.x == 0) s_prefix = prefix;
+  }
+  __syncthreads();
+  const unsigned prefix = s_prefix;
+  const int shift = 24 - 8 * pass;
+  const float* srow = scores + row * n_docs;
+  const int lo = blockIdx.x * kSlice, hi = min(n_docs, lo + kSlice);
+  unsigned* hw = h[threadIdx.x / 32];
+  for (int t = lo + threadIdx.x; t < hi; t += kSelThreads) {
+    const unsigned key = score_key(srow[t]);
+    if (pass == 0 || (key >> (shift + 8)) == prefix) {
+      atomicAdd(&hw[(key >> shift) & 255u], 1u);
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < 256; b += kSelThreads) {
+    unsigned sum = 0;
+#pragma unroll
+    for (int w = 0; w < kSelThreads / 32; ++w) sum += h[w][b];
+    if (sum) atomicAdd(&hrow[pass * 256 + b], sum);
+  }
+}
+
+// Block-wide sum of one unsigned a thread (kSelThreads threads); `red`
+// holds a slot a warp.
+__device__ __forceinline__ unsigned sel_sum(unsigned x, unsigned* red) {
+  x = __reduce_add_sync(0xffffffffu, x);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
+  __syncthreads();
+  unsigned total = 0;
+#pragma unroll
+  for (int w = 0; w < kSelThreads / 32; ++w) total += red[w];
+  __syncthreads();
+  return total;
+}
+
+// Grid (slices, rows): keys above and equal to the k-th key V, per slice,
+// into counts[row][slice][2].
+__global__ void __launch_bounds__(kSelThreads)
+topk_count_kernel(const float* __restrict__ scores,
+                  const unsigned* __restrict__ hist, int* __restrict__ counts,
+                  int n_docs, int k) {
+  __shared__ unsigned s_v, red[kSelThreads / 32];
+  const size_t row = blockIdx.y;
+  if (threadIdx.x < 32) {
+    unsigned v;
+    int rem;
+    resolve(hist + row * 4 * 256, 4, k, v, rem);
+    if (threadIdx.x == 0) s_v = v;
+  }
+  __syncthreads();
+  const unsigned v = s_v;
+  const float* srow = scores + row * n_docs;
+  const int lo = blockIdx.x * kSlice, hi = min(n_docs, lo + kSlice);
+  unsigned gt = 0, eq = 0;
+  for (int t = lo + threadIdx.x; t < hi; t += kSelThreads) {
+    const unsigned key = score_key(srow[t]);
+    gt += key > v;
+    eq += key == v;
+  }
+  gt = sel_sum(gt, red);
+  eq = sel_sum(eq, red);
+  if (threadIdx.x == 0) {
+    int* out = counts + (row * gridDim.x + blockIdx.x) * 2;
+    out[0] = static_cast<int>(gt);
+    out[1] = static_cast<int>(eq);
+  }
+}
+
+// Grid (slices, rows): the row's k winners, in ascending doc order, into
+// win_key / win_idx [row][k_pad] (slots k.. are left for the sort).
+__global__ void __launch_bounds__(kSelThreads)
+topk_compact_kernel(const float* __restrict__ scores,
+                    const unsigned* __restrict__ hist,
+                    const int* __restrict__ counts,
+                    unsigned* __restrict__ win_key, int* __restrict__ win_idx,
+                    int n_docs, int k, int k_pad) {
+  __shared__ unsigned s_v, red[kSelThreads / 32];
+  __shared__ int s_rem;
+  const size_t row = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x < 32) {
+    unsigned v;
+    int rem;
+    resolve(hist + row * 4 * 256, 4, k, v, rem);
+    if (threadIdx.x == 0) {
+      s_v = v;
+      s_rem = rem;
+    }
+  }
+  // keys above and equal to V in the earlier slices
+  unsigned gt = 0, eq = 0;
+  const int* crow = counts + row * gridDim.x * 2;
+  for (int s = threadIdx.x; s < static_cast<int>(blockIdx.x);
+       s += kSelThreads) {
+    gt += crow[2 * s];
+    eq += crow[2 * s + 1];
+  }
+  __syncthreads();
+  gt = sel_sum(gt, red);
+  eq = sel_sum(eq, red);
+  const unsigned v = s_v;
+  const int rem = s_rem;
+  const float* srow = scores + row * n_docs;
+  unsigned* okey = win_key + row * k_pad;
+  int* oidx = win_idx + row * k_pad;
+  const int lo = blockIdx.x * kSlice, hi = min(n_docs, lo + kSlice);
+  const unsigned below = (1u << lane) - 1;
+  for (int base = lo; base < hi; base += kSelThreads) {
+    const int t = base + threadIdx.x;
+    const unsigned key = t < hi ? score_key(srow[t]) : 0u;
+    const bool is_gt = t < hi && key > v, is_eq = t < hi && key == v;
+    // docs above / equal to V before this one in the block's step
+    const unsigned bg = __ballot_sync(0xffffffffu, is_gt);
+    const unsigned be = __ballot_sync(0xffffffffu, is_eq);
+    if (lane == 0) red[warp] = (__popc(be) << 16) | __popc(bg);
+    __syncthreads();
+    unsigned before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kSelThreads / 32; ++w) {
+      before += w < warp ? red[w] : 0u;
+      total += red[w];
+    }
+    __syncthreads();
+    const unsigned g = gt + (before & 0xffffu) + __popc(bg & below);
+    const unsigned e = eq + (before >> 16) + __popc(be & below);
+    if (is_gt || (is_eq && e < static_cast<unsigned>(rem))) {
+      const unsigned at = g + min(e, static_cast<unsigned>(rem));
+      okey[at] = key;
+      oidx[at] = t;
+    }
+    gt += total & 0xffffu;
+    eq += total >> 16;
+  }
+}
+
+// Compare-exchange of winner slots lo < hi: the better entry to lo when
+// best_first, to hi otherwise.
+__device__ __forceinline__ void key_swap(unsigned* key, int* ix, int lo,
+                                         int hi, bool best_first) {
+  const unsigned ka = key[lo], kb = key[hi];
+  const int ia = ix[lo], ib = ix[hi];
+  if (best_first ? key_better(kb, ib, ka, ia) : key_better(ka, ia, kb, ib)) {
+    key[lo] = kb;
+    key[hi] = ka;
+    ix[lo] = ib;
+    ix[hi] = ia;
+  }
+}
+
+// Grid (k_pad / chunk, rows), chunk = min(k_pad, kSortChunk).  size == 0:
+// loads the winners (slots from k on empty) and sorts each chunk, the
+// bitonic network's sizes 2..chunk; else the strides below chunk of the
+// merge at `size`.  The direction of a pair is that of its global slot, so
+// chunks alternate as the network needs.  `final`: the sorted rows go to
+// vals / idxs [rows][k] instead of back to the buffer.
+__global__ void __launch_bounds__(kSortThreads)
+topk_sort_local_kernel(unsigned* __restrict__ win_key,
+                       int* __restrict__ win_idx, float* __restrict__ vals,
+                       int* __restrict__ idxs, int k, int k_pad, int size,
+                       int final) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int chunk = min(k_pad, kSortChunk);
+  unsigned* sk = reinterpret_cast<unsigned*>(smem);
+  int* si = reinterpret_cast<int*>(sk + chunk);
+  const size_t row = blockIdx.y;
+  const int base = blockIdx.x * chunk;
+  unsigned* gk = win_key + row * k_pad + base;
+  int* gi = win_idx + row * k_pad + base;
+  for (int t = threadIdx.x; t < chunk; t += kSortThreads) {
+    const bool empty = size == 0 && base + t >= k;
+    sk[t] = empty ? 0u : gk[t];
+    si[t] = empty ? kIdxPad : gi[t];
+  }
+  __syncthreads();
+  for (int sz = size == 0 ? 2 : size; sz <= (size == 0 ? chunk : size);
+       sz <<= 1) {
+    for (int stride = min(sz, chunk) >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < chunk / 2; t += kSortThreads) {
+        const int lo = lower_slot(t, stride);
+        key_swap(sk, si, lo, lo + stride, ((base + lo) & sz) == 0);
+      }
+      __syncthreads();
+    }
+  }
+  if (final) {
+    for (int t = threadIdx.x; t < chunk && base + t < k; t += kSortThreads) {
+      vals[row * k + base + t] = key_score(sk[t]);
+      idxs[row * k + base + t] = si[t];
+    }
+  } else {
+    for (int t = threadIdx.x; t < chunk; t += kSortThreads) {
+      gk[t] = sk[t];
+      gi[t] = si[t];
+    }
+  }
+}
+
+// Grid (ceil(k_pad / 2 / 256), rows): one stride >= kSortChunk of the
+// bitonic merge at `size`, in device memory.
+__global__ void __launch_bounds__(256)
+topk_sort_step_kernel(unsigned* __restrict__ win_key,
+                      int* __restrict__ win_idx, int k_pad, int size,
+                      int stride) {
+  const int t = blockIdx.x * 256 + threadIdx.x;
+  if (t >= k_pad / 2) return;
+  const size_t row = blockIdx.y;
+  const int lo = lower_slot(t, stride);
+  key_swap(win_key + row * k_pad, win_idx + row * k_pad, lo, lo + stride,
+           (lo & size) == 0);
+}
+
 // Lets `kernel` use all of a block's shared memory on `device`, once:
 // `done` is the caller's record, one per kernel.
 template <typename K>
@@ -925,14 +1271,13 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
 }
 
 // Shared memory of stage 1 on each path: stages (and, for TMA, their
-// barriers and 1 KB to align them) and kBQ rows of cap slots.
-int tma_smem(int ns, int k_pad) {
-  return 1024 + ns * (kTmaStageFloats * 4 + 16) + kBQ * (k_pad + kCand) * 8;
+// barriers and 1 KB to align them) and kBQ rows of cap slots (none in
+// score mode).
+int tma_smem(int ns, int cap) {
+  return 1024 + ns * (kTmaStageFloats * 4 + 16) + kBQ * cap * 8;
 }
 
-int regs_smem(int k_pad) {
-  return 2 * kStageFloats * 4 + kBQ * (k_pad + kCand) * 8;
-}
+int regs_smem(int cap) { return 2 * kStageFloats * 4 + kBQ * cap * 8; }
 
 // Stage 2's shared memory: value, index and key of each candidate, the
 // k_pad winners, and the reductions' slots.
@@ -940,22 +1285,36 @@ long long merge_smem(int splits, int k, int k_pad) {
   return 12LL * splits * k + 8LL * k_pad + 4 * (kMergeThreads / 32 + 1);
 }
 
-// Stage 1: writes the result to (out_v, out_i) [n_q, k] when splits == 1,
-// else each split's best k to [n_q, splits, k].
-template <typename T>
+// Makes `device` current only where it is not: the check is cheaper than
+// cudaSetDevice on every launch.
+cudaError_t use_device(int device) {
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess || cur == device) return err;
+  return cudaSetDevice(device);
+}
+
+// Stage 1.  Filter mode: writes the result to (out_v, out_i) [n_q, k] when
+// splits == 1, else each split's best k to [n_q, splits, k].  Score mode
+// (kScores): writes every score to out_v [n_q, n_docs]; k and k_pad are
+// not read.
+template <typename T, bool kScores>
 int launch_select(const void* q, const void* c, void* out_v, void* out_i,
                   int n_q, int n_docs, int d, int k, int k_pad, int splits,
                   int per_split, int stages, int device, void* stream) {
-  if (n_q < 1 || n_docs < 1 || n_docs >= kIdxPad || d < 1 || k < 1 ||
-      k > n_docs || k > k_pad || k_pad > 1024 ||
-      (k_pad & (k_pad - 1)) != 0 || splits < 1 || splits > 65535 ||
-      per_split < 1 ||
+  const int cap = kScores ? 0 : k_pad + kCand;
+  if (n_q < 1 || n_docs < 1 || n_docs >= kIdxPad || d < 1 || splits < 1 ||
+      splits > 65535 || per_split < 1 ||
       static_cast<long long>(splits) * per_split < n_docs ||
       stages < 2 || stages > kMaxStages ||
-      tma_smem(stages, k_pad) > kMaxSmem || regs_smem(k_pad) > kMaxSmem) {
+      tma_smem(stages, cap) > kMaxSmem || regs_smem(cap) > kMaxSmem) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice(device);
+  if (!kScores && (k < 1 || k > n_docs || k > k_pad || k_pad > 1024 ||
+                   (k_pad & (k_pad - 1)) != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   const auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((n_q + kBQ - 1) / kBQ, splits);
@@ -970,20 +1329,83 @@ int launch_select(const void* q, const void* c, void* out_v, void* out_i,
       return cudaErrorNotSupported;
     }
     static bool done[64] = {};
-    err = allow_max_smem(dense_topk_tma_kernel, device, done);
+    err = allow_max_smem(dense_topk_tma_kernel<kScores>, device, done);
     if (err != cudaSuccess) return err;
-    dense_topk_tma_kernel<<<grid, kThreads + 32, tma_smem(stages, k_pad),
-                            st>>>(tm_q, tm_c, static_cast<float*>(out_v),
-                                  static_cast<int*>(out_i), n_q, n_docs, d,
-                                  k, k_pad, per_split, stages);
+    dense_topk_tma_kernel<kScores>
+        <<<grid, kThreads + 32, tma_smem(stages, cap), st>>>(
+            tm_q, tm_c, static_cast<float*>(out_v), static_cast<int*>(out_i),
+            n_q, n_docs, d, k, k_pad, per_split, stages);
   } else {
     static bool done[64] = {};
-    err = allow_max_smem(dense_topk_select_kernel<T>, device, done);
+    err = allow_max_smem(dense_topk_select_kernel<T, kScores>, device, done);
     if (err != cudaSuccess) return err;
-    dense_topk_select_kernel<T><<<grid, kThreads, regs_smem(k_pad), st>>>(
+    dense_topk_select_kernel<T, kScores><<<grid, kThreads, regs_smem(cap),
+                                           st>>>(
         static_cast<const T*>(q), static_cast<const T*>(c),
         static_cast<float*>(out_v), static_cast<int*>(out_i), n_q, n_docs, d,
         k, k_pad, per_split);
+  }
+  return cudaGetLastError();
+}
+
+// The large-k path for one query chunk of n_q rows (see above): `work`
+// holds, in this order, the scores [n_q, n_docs] f32, the counts
+// [n_q, 4, 256], the slices' counts [n_q, slices, 2], and the winners'
+// keys and indices [n_q, k_pad] each.  The launches: stage 1 in score
+// mode, 4 histogram passes, the count, the compaction, then the sort.
+template <typename T>
+int launch_large(const void* q, const void* c, void* work, void* vals,
+                 void* idxs, int n_q, int n_docs, int d, int k, int k_pad,
+                 int splits, int per_split, int stages, int slices,
+                 int device, void* stream) {
+  if (n_q < 1 || n_q > 65535 || n_docs < 1 || k < 1 || k > n_docs ||
+      k > k_pad || (k_pad & (k_pad - 1)) != 0 || k_pad >= kIdxPad ||
+      slices != (n_docs + kSlice - 1) / kSlice) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = static_cast<cudaError_t>(launch_select<T, true>(
+      q, c, work, nullptr, n_q, n_docs, d, 0, 0, splits, per_split, stages,
+      device, stream));
+  if (err != cudaSuccess) return err;
+  const auto st = static_cast<cudaStream_t>(stream);
+  float* scores = static_cast<float*>(work);
+  unsigned* hist = reinterpret_cast<unsigned*>(
+      scores + static_cast<size_t>(n_q) * n_docs);
+  int* counts = reinterpret_cast<int*>(hist + static_cast<size_t>(n_q) * 1024);
+  unsigned* win_key = reinterpret_cast<unsigned*>(
+      counts + static_cast<size_t>(n_q) * slices * 2);
+  int* win_idx = reinterpret_cast<int*>(
+      win_key + static_cast<size_t>(n_q) * k_pad);
+  err = cudaMemsetAsync(hist, 0, static_cast<size_t>(n_q) * 1024 * 4, st);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(slices, n_q);
+  for (int pass = 0; pass < 4; ++pass) {
+    topk_hist_kernel<<<grid, kSelThreads, 0, st>>>(scores, hist, n_docs, k,
+                                                   pass);
+  }
+  topk_count_kernel<<<grid, kSelThreads, 0, st>>>(scores, hist, counts,
+                                                  n_docs, k);
+  topk_compact_kernel<<<grid, kSelThreads, 0, st>>>(
+      scores, hist, counts, win_key, win_idx, n_docs, k, k_pad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  static bool done[64] = {};
+  err = allow_max_smem(topk_sort_local_kernel, device, done);
+  if (err != cudaSuccess) return err;
+  const int chunk = k_pad < kSortChunk ? k_pad : kSortChunk;
+  const dim3 local(k_pad / chunk, n_q);
+  const int local_smem = chunk * 8;
+  float* fv = static_cast<float*>(vals);
+  int* fi = static_cast<int*>(idxs);
+  topk_sort_local_kernel<<<local, kSortThreads, local_smem, st>>>(
+      win_key, win_idx, fv, fi, k, k_pad, 0, k_pad == chunk);
+  for (int size = 2 * chunk; size <= k_pad; size <<= 1) {
+    for (int stride = size / 2; stride >= chunk; stride /= 2) {
+      topk_sort_step_kernel<<<dim3((k_pad / 2 + 255) / 256, n_q), 256, 0,
+                              st>>>(win_key, win_idx, k_pad, size, stride);
+    }
+    topk_sort_local_kernel<<<local, kSortThreads, local_smem, st>>>(
+        win_key, win_idx, fv, fi, k, k_pad, size, size == k_pad);
   }
   return cudaGetLastError();
 }
@@ -1002,8 +1424,9 @@ extern "C" int dense_topk_select_f32(const void* q, const void* c,
                                      int n_docs, int d, int k, int k_pad,
                                      int splits, int per_split, int stages,
                                      int device, void* stream) {
-  return launch_select<float>(q, c, out_v, out_i, n_q, n_docs, d, k, k_pad,
-                              splits, per_split, stages, device, stream);
+  return launch_select<float, false>(q, c, out_v, out_i, n_q, n_docs, d, k,
+                                     k_pad, splits, per_split, stages, device,
+                                     stream);
 }
 
 extern "C" int dense_topk_select_bf16(const void* q, const void* c,
@@ -1011,9 +1434,9 @@ extern "C" int dense_topk_select_bf16(const void* q, const void* c,
                                       int n_docs, int d, int k, int k_pad,
                                       int splits, int per_split, int stages,
                                       int device, void* stream) {
-  return launch_select<__nv_bfloat16>(q, c, out_v, out_i, n_q, n_docs, d, k,
-                                      k_pad, splits, per_split, stages,
-                                      device, stream);
+  return launch_select<__nv_bfloat16, false>(q, c, out_v, out_i, n_q, n_docs,
+                                             d, k, k_pad, splits, per_split,
+                                             stages, device, stream);
 }
 
 // Stage 2: part_v / part_i [n_q, splits, k] from dense_topk_select_* ->
@@ -1026,7 +1449,7 @@ extern "C" int dense_topk_merge(const void* part_v, const void* part_i,
       (k_pad & (k_pad - 1)) != 0 || merge_smem(splits, k, k_pad) > kMaxSmem) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   static bool done[64] = {};
   err = allow_max_smem(dense_topk_merge_kernel, device, done);
@@ -1037,4 +1460,29 @@ extern "C" int dense_topk_merge(const void* part_v, const void* part_i,
       static_cast<const float*>(part_v), static_cast<const int*>(part_i),
       static_cast<float*>(vals), static_cast<int*>(idxs), splits, k, k_pad);
   return cudaGetLastError();
+}
+
+// The large-k path for a query chunk: q [n_q, d] (the chunk's rows),
+// c [n_docs, d], `work` as launch_large lays it out, vals [n_q, k] fp32
+// and idxs [n_q, k] int32 (the chunk's rows of the result).  Launches on
+// `stream` and returns the CUDA error code (0 on success).
+extern "C" int dense_topk_large_f32(const void* q, const void* c, void* work,
+                                    void* vals, void* idxs, int n_q,
+                                    int n_docs, int d, int k, int k_pad,
+                                    int splits, int per_split, int stages,
+                                    int slices, int device, void* stream) {
+  return launch_large<float>(q, c, work, vals, idxs, n_q, n_docs, d, k,
+                             k_pad, splits, per_split, stages, slices, device,
+                             stream);
+}
+
+extern "C" int dense_topk_large_bf16(const void* q, const void* c,
+                                     void* work, void* vals, void* idxs,
+                                     int n_q, int n_docs, int d, int k,
+                                     int k_pad, int splits, int per_split,
+                                     int stages, int slices, int device,
+                                     void* stream) {
+  return launch_large<__nv_bfloat16>(q, c, work, vals, idxs, n_q, n_docs, d,
+                                     k, k_pad, splits, per_split, stages,
+                                     slices, device, stream);
 }

@@ -17,9 +17,14 @@ torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
-# (T, D): the reference's sweep, its bench's tile, ragged and empty edges
+# (T, D): the reference's sweep, its bench's tile, ragged and empty
+# edges; D not a multiple of 4 takes the 4-byte loads; T above the
+# block's 8 warps gives each warp several terms
 CASES = [(8, 128), (20, 150), (64, 512), (5, 40), (64, 8192), (0, 300),
-         (3, 1), (7, 100001)]
+         (3, 1), (7, 100001), (37, 1001), (9, 39_600), (40, 4096)]
+# |kernel - plain| <= ATOL: both sum in fp32 but in other orders (the
+# kernel per warp in term order, then the warps' sums in warp order)
+ATOL = 1e-4
 
 
 @pytest.fixture
@@ -48,7 +53,24 @@ def test_kernel_matches_plain_version(cuda, T, D):
     torch.cuda.synchronize()
     assert bm25_block.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               atol=1e-4)
+                               atol=ATOL)
+
+
+def test_misaligned_view_and_repeat_runs_give_the_same_bits(cuda):
+    """A tile 4 bytes into its storage (contiguous, not 16-byte aligned)
+    takes the 4-byte loads; two runs of either path give equal bits."""
+    tf, idf, dl = _inputs(12, 4096, cuda, seed=3)
+    flat = torch.zeros(tf.numel() + 1, device=cuda)
+    flat[1:] = tf.reshape(-1)
+    view = flat[1:].view(tf.shape)
+    assert view.data_ptr() % 16 != 0 and tf.data_ptr() % 16 == 0
+    want = bm25_block_ref(tf, idf, dl, avg_dl=55.0)
+    for x in (view, tf):
+        a = bm25_block(x, idf, dl, avg_dl=55.0)
+        b = bm25_block(x, idf, dl, avg_dl=55.0)
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.cpu().numpy(), want.cpu().numpy(),
+                                   atol=ATOL)
 
 
 def test_degenerate_parameters_give_no_nan(cuda):
@@ -60,7 +82,7 @@ def test_degenerate_parameters_give_no_nan(cuda):
         np.testing.assert_allclose(
             got.cpu().numpy(),
             bm25_block_ref(tf, idf, dl, k1=k1, b=b, avg_dl=40.0)
-            .cpu().numpy(), atol=1e-4)
+            .cpu().numpy(), atol=ATOL)
 
 
 def test_reproduces_score_query(cuda):

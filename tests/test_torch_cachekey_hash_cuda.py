@@ -20,9 +20,13 @@ torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
-# the reference's sweep, provenance rows (N = 1, long L) and a wide batch
+# the reference's sweep, provenance rows (N = 1, long L) and a wide
+# batch; then L not a multiple of the 32-word staging chunk (16-byte
+# loads with a tail: 100; 4-byte loads: 37, 7), N not a multiple of the
+# block's 256 rows, N = 1 at a plan digest's 64 words
 CASES = [(1, 1), (10, 7), (256, 16), (300, 64), (1, 64), (1, 4096),
-         (4096, 64), (257, 0)]
+         (4096, 64), (257, 0), (513, 100), (1000, 37), (1, 40), (1, 7),
+         (65536, 64)]
 
 
 @pytest.fixture
@@ -52,6 +56,38 @@ def test_kernel_matches_plain_version_bit_for_bit(cuda, n, L):
     for i in range(0, n, max(1, n // 4)):
         assert got[i].cpu().numpy().astype("<i4").tobytes() == \
             host_cachekey(t[i].numpy())
+
+
+@pytest.mark.parametrize("n,L", [(3, 64), (300, 36)])
+def test_misaligned_rows_and_out_views(cuda, n, L):
+    """A view 4 bytes into its storage takes the 4-byte loads; ``out``
+    may be a row range of a larger output."""
+    t = _tokens(n, L, 5)
+    flat = torch.zeros(n * L + 1, dtype=torch.int32, device=cuda)
+    flat[1:] = t.reshape(-1).to(cuda)
+    view = flat[1:].view(n, L)
+    assert view.data_ptr() % 16 != 0
+    out = torch.full((n + 2, 2), 7, dtype=torch.int32, device=cuda)
+    cachekey_hash(view, out[1:n + 1])
+    torch.cuda.synchronize()
+    assert torch.equal(out[1:n + 1].cpu(), cachekey_hash_ref(t))
+    assert bool((out[0] == 7).all() and (out[-1] == 7).all())
+
+
+def test_digest_many_on_the_card_equals_digest_bytes(cuda):
+    prev = prov.set_digest_device("cuda")
+    try:
+        rng = np.random.default_rng(1)
+        payloads = [rng.bytes(n) for n in (0, 5, 248, 249, 700, 20000)]
+        payloads += payloads[:3]
+        before = cachekey_hash.launches
+        got = prov.digest_many(payloads)
+        assert cachekey_hash.launches == before + 4   # 64, 128, 192, 5056
+        assert got == [prov.digest_bytes(p) for p in payloads]
+        prov.set_digest_device("cpu")
+        assert got == prov.digest_many(payloads)
+    finally:
+        prov.set_digest_device(prev)
 
 
 def test_digest_bytes_on_the_card_equals_host_loop(cuda):

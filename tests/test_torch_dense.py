@@ -76,6 +76,36 @@ def test_rankings_equal_reference_pallas(pair, num_results):
     np.testing.assert_allclose(b["score"], a["score"], atol=2e-5)
 
 
+def test_num_results_2000_equals_reference(pair):
+    """k above the CUDA kernel's filter path (1,024): 2,000 rows per
+    query over a 3,000-doc matrix held by both indexes.  The reference
+    runs its plain ``lax.top_k`` backend, as its tests run it on the
+    CPU; the port runs on the CPU as well."""
+    corpus, jidx, tidx = pair
+    rng = np.random.default_rng(20)
+    m = rng.normal(size=(3000, 32)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    docnos = [f"x{i}" for i in range(len(m))]
+    jbig, tbig = jir.DenseIndex(jidx.encoder), tir.DenseIndex(tidx.encoder)
+    jbig.docnos, tbig.docnos = list(docnos), list(docnos)
+    jbig.matrix, tbig.matrix = m, torch.from_numpy(m)
+    topics = type(corpus.get_topics()).from_dicts(
+        {"qid": f"b{i}", "query": f"num results 2000 query {i}"}
+        for i in range(4))
+    q_emb = rng.normal(size=(len(topics), 32)).astype(np.float32)
+    jbig.encoder._query_memo.update(zip(topics["query"].tolist(), q_emb))
+    tbig.encoder._query_memo.update(
+        (t, torch.from_numpy(e)) for t, e in
+        zip(topics["query"].tolist(), q_emb))
+    a = jir.DenseRetriever(jbig, 2000, backend="xla")(topics)
+    b = tir.DenseRetriever(tbig, 2000)(_port_frame(topics))
+    assert len(b) == 2000 * len(topics)
+    assert a["qid"].tolist() == b["qid"].tolist()
+    assert a["docno"].tolist() == b["docno"].tolist()
+    assert a["rank"].tolist() == b["rank"].tolist()
+    np.testing.assert_allclose(b["score"], a["score"], atol=2e-5)
+
+
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_topk_on_same_inputs_equals_reference(pair, backend):
     _, jidx, tidx = pair

@@ -14,8 +14,10 @@ from repro_torch import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.dense_topk import (dense_topk, dense_topk_op,
                                             dense_topk_ref)
-from repro_torch.kernels.dense_topk.kernel import (BN, CAND, MAX_K,
-                                                   MAX_SMEM, SMS, plan)
+from repro_torch.kernels.dense_topk.kernel import (BN, CAND, FILTER_K,
+                                                   MAX_SMEM, SELECT_CAP,
+                                                   SLICE, SMS, plan,
+                                                   sort_launches)
 
 torch.set_num_threads(1)
 
@@ -131,7 +133,7 @@ NEG_INF, IDX_PAD = -1e30, 2 ** 30
 
 
 @pytest.mark.parametrize("d", [16, 33, 128, 9000])
-@pytest.mark.parametrize("k", [1, 200, MAX_K])
+@pytest.mark.parametrize("k", [1, 200, FILTER_K])
 def test_plan_invariants(k, d):
     for Q in (1, 16, 53, 300):
         for N in (k, k + 1, 5000, 39_600, 8_841_823):
@@ -160,8 +162,11 @@ def test_plan_fills_the_card_at_the_main_shape():
     p = plan(53, 8_841_823, 128, 200)     # MS MARCO passage's corpus
     assert 4 * p.splits == 132
     assert plan(1, 8, 16, 3).launches == 1
-    with pytest.raises(ValueError, match="k"):
-        plan(2, 2000, 16, MAX_K + 1)
+    # above FILTER_K the select path takes over: no k <= N is refused
+    assert plan(2, 2000, 16, FILTER_K + 1).path == "select"
+    for bad in (0, 2001):
+        with pytest.raises(ValueError, match="k"):
+            plan(2, 2000, 16, bad)
 
 
 def _better(a, b):
@@ -239,3 +244,109 @@ def test_split_then_merge_ties_straddle_splits(sms):
         for g in pos:                   # a copy ranks after every earlier one
             for copy in range(g % 300, g, 300):
                 assert copy in pos and pos[copy] < pos[g]
+
+
+# -- the select path (k > FILTER_K): its plan, and its radix select emulated
+
+def test_select_plan_at_table2_and_msmarco():
+    assert plan(53, 39_600, 128, FILTER_K).path == "filter"
+    p = plan(53, 39_600, 128, 2000)       # Table 2's corpus, k 2,000
+    assert (p.path, p.q_chunk, p.slices, p.k_pad) == ("select", 53, 5, 2048)
+    assert p.work_bytes == 53 * (4 * 39_600 + 4 * 1024 + 8 * 5 + 8 * 2048)
+    assert p.launches == 7 + sort_launches(2048) == 8
+    assert (p.splits, p.per_split) == (31, 1280)
+    p = plan(53, 8_841_823, 128, 2000)    # MS MARCO passage's corpus
+    assert (p.path, p.q_chunk, p.slices) == ("select", 30, 1080)
+    assert p.work_bytes == 30 * (4 * 8_841_823 + 4 * 1024 + 8 * 1080
+                                 + 8 * 2048) <= SELECT_CAP
+    assert p.launches == 2 * 8            # two query chunks
+    p = plan(53, 39_600, 128, 39_600)     # k = N: the sort spans launches
+    assert p.k_pad == 65536 and sort_launches(65536) == 10
+    assert p.launches == 17 and p.q_chunk == 53
+
+
+@pytest.mark.parametrize("N,k", [(1500, 1025), (39_600, 2000),
+                                 (8_841_823, 2000), (70_000, 70_000)])
+def test_select_plan_invariants(N, k):
+    for Q in (1, 16, 53, 300):
+        p = plan(Q, N, 128, k)
+        assert p.path == "select" and p.merge_smem == 0
+        assert p.k_pad >= k > p.k_pad // 2
+        assert (p.splits - 1) * p.per_split < N <= p.splits * p.per_split
+        assert p.slices == -(-N // SLICE) and 1 <= p.q_chunk <= Q
+        assert p.work_bytes <= SELECT_CAP or p.q_chunk == 1
+        assert p.smem <= MAX_SMEM
+        chunks = -(-Q // p.q_chunk)
+        assert p.launches == chunks * (7 + sort_launches(p.k_pad))
+
+
+def _score_keys(x):
+    """Order-preserving uint32 keys of fp32 scores, -0 and +0 as one."""
+    b = (x.astype(np.float32) + np.float32(0)).view(np.uint32)
+    return np.where(b >> 31, ~b, b | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _radix_select(row, k, slice_len):
+    """The select path's kernels on one row of scores, in numpy: the
+    k-th key V by four 8-bit passes; per slice, the keys above and equal
+    to V; each winner's slot g + min(e, rem) from the counts before it;
+    then the sort by key, then index.  Returns (vals, idxs, slots)."""
+    keys = _score_keys(row)
+    prefix, rem = 0, k
+    for p in range(4):
+        shift = 24 - 8 * p
+        live = keys if p == 0 else keys[(keys >> (shift + 8)) == prefix]
+        hist = np.bincount((live >> shift) & 255, minlength=256)
+        above = 0
+        for digit in range(255, -1, -1):
+            if above + hist[digit] >= rem:
+                break
+            above += hist[digit]
+        prefix, rem = (prefix << 8) | digit, rem - above
+    v = np.uint32(prefix)
+    slices = [keys[lo:lo + slice_len] for lo in range(0, len(keys),
+                                                      slice_len)]
+    counts = [(int((s > v).sum()), int((s == v).sum())) for s in slices]
+    slots = {}
+    for si, s in enumerate(slices):
+        g = sum(c[0] for c in counts[:si])
+        e = sum(c[1] for c in counts[:si])
+        for j, key in enumerate(s):
+            doc = si * slice_len + j
+            if key > v:
+                slots[min(e, rem) + g] = doc
+                g += 1
+            elif key == v:
+                if e < rem:
+                    slots[g + e] = doc
+                e += 1
+    docs = np.array([slots[i] for i in range(len(slots))])
+    order = np.lexsort((docs, -keys[docs].astype(np.int64)))
+    return row[docs[order]], docs[order].astype(np.int32), docs
+
+
+@pytest.mark.parametrize("kind,N,k,slice_len", [
+    ("integer", 3000, 1500, SLICE), ("integer", 3000, 3000, 256),
+    ("integer", 3000, 2000, 256), ("normal", 2500, 2000, 300)])
+def test_radix_select_emulation_matches_reference(kind, N, k, slice_len):
+    """Integer entries make every score exact, so ties are everywhere;
+    the winners must fill slots 0..k-1 in ascending doc order, and the
+    result equal the reference's oracle exactly on indices."""
+    from repro.kernels.dense_topk.ref import dense_topk_ref as j_ref
+    rng = np.random.default_rng(N + k)
+    if kind == "integer":
+        q = rng.integers(-3, 4, size=(3, 16)).astype(np.float32)
+        c = rng.integers(-3, 4, size=(N, 16)).astype(np.float32)
+    else:
+        q = rng.normal(size=(3, 16)).astype(np.float32)
+        c = rng.normal(size=(N, 16)).astype(np.float32)
+    s = torch.matmul(torch.from_numpy(q), torch.from_numpy(c).T).numpy()
+    rv, ri = j_ref(jnp.asarray(q), jnp.asarray(c), k=k)
+    tv, ti = dense_topk_ref(torch.from_numpy(q), torch.from_numpy(c), k=k)
+    for r, row in enumerate(s):
+        vals, idxs, docs = _radix_select(row, k, slice_len)
+        assert len(docs) == k and bool((np.diff(docs) > 0).all())
+        np.testing.assert_array_equal(idxs, ti.numpy()[r])
+        np.testing.assert_array_equal(vals, tv.numpy()[r])
+        np.testing.assert_array_equal(idxs, np.asarray(ri)[r])
+        np.testing.assert_allclose(vals, np.asarray(rv)[r], atol=TOL["float32"])

@@ -8,8 +8,13 @@ import re
 import pytest
 import torch
 
+import repro.caching.provenance as jprov
 import repro.core as jcore
+import repro.core.cost as jcost
+import repro_torch.caching.provenance as tprov
 import repro_torch.core as tcore
+import repro_torch.ir as tir
+import repro_torch.models.cross_encoder as tce
 from repro_torch.caching.provenance import set_digest_device
 from repro_torch.core.rewrite import OPTIMIZER_PASSES, resolve_passes
 from _torch_parity import frames_equal, pipeline_sets, toy
@@ -218,3 +223,69 @@ def test_cost_model_and_analytic_priors_equal_reference():
     assert strip(tm.to_manifest()) == strip(jm.to_manifest())
     assert tcost.should_prefetch(None) == jcost.should_prefetch(None)
     assert tcost.should_prefetch(1e-7) == jcost.should_prefetch(1e-7)
+
+
+# -- a Table 2 plan's provenance, digested level by level -----------------
+
+def _table2_plan():
+    """Setting (2)'s plan of the paper's Table 2 in the port, on the CPU:
+    ``bm25 % k >> text >> mono % 10 >> duo`` for k in 20, 50, 100, 200."""
+    corpus = tir.msmarco_like(1, 0.05)
+    index = tir.InvertedIndex.build(corpus.get_corpus_iter())
+    tl = tir.TextLoader(corpus.text_map())
+    cfg = tce.EncoderConfig(name="torch-parity-plan-fps", n_layers=1,
+                            d_model=16, n_heads=2, d_ff=32, vocab_size=256,
+                            max_len=16)
+    mono = tce.MonoScorer(cfg, device="cpu")
+    duo = tce.DuoScorer(cfg, max_docs=10, device="cpu")
+    bm25 = index.bm25(num_results=200)
+    return tcore.ExecutionPlan([bm25 % k >> tl >> mono % 10 >> duo
+                                for k in (20, 50, 100, 200)])
+
+
+def test_table2_plan_fingerprints_equal_reference_digest_for_digest():
+    """The reference's row-by-row fold, run over the port's plan graph
+    (its stages' fingerprints from the port's row-by-row digest), gives
+    every node fingerprint and the plan id the batches give."""
+    plan = _table2_plan()
+    fps = plan.node_fingerprints()
+    want = jcost.compute_node_fingerprints(plan.graph)
+    assert fps == want
+    assert plan.to_record()["plan_id"] == jprov.combine_fingerprints(
+        "plan", *[want[t.id] for t in plan.graph.terminals])
+    for node in plan.graph.nodes:                  # the stages, one by one
+        if node.kind == "stage":
+            assert tprov.digest_bytes(tprov.fingerprint_payload(
+                node.stage)) == node.stage.fingerprint()
+
+
+def test_table2_plan_launches_one_digest_per_level_and_length(monkeypatch):
+    import repro_torch.kernels.cachekey_hash.ops as hops
+    calls, launches = [], [0]
+    orig_many, orig_op = tprov.digest_many, hops.cachekey_hash_op
+
+    def many(payloads):
+        calls.append([len(tprov._bucket_words(p)) for p in payloads])
+        return orig_many(payloads)
+
+    def op(tokens, out=None):
+        launches[0] += 1
+        return orig_op(tokens, out)
+    monkeypatch.setattr(tprov, "digest_many", many)
+    monkeypatch.setattr(hops, "cachekey_hash_op", op)
+    plan = _table2_plan()
+    plan.node_fingerprints()
+    nodes = [n for n in plan.graph.nodes if n.kind != "source"]
+    depth = {plan.graph.source.id: 0}
+    for n in nodes:
+        depth[n.id] = 1 + max(depth[i.id] for i in n.inputs)
+    # the stages, one batch per depth, then the plan id
+    assert len(calls) == 1 + max(depth.values()) + 1
+    assert [len(c) for c in calls[1:-1]] == [
+        sum(depth[n.id] == d for n in nodes)
+        for d in range(1, max(depth.values()) + 1)]
+    groups = sum(len(set(c)) for c in calls)
+    assert launches[0] == groups
+    # row by row it was one launch per digest: the source, each node's
+    # stage and its fold, and the plan id
+    assert groups < 2 + 2 * len(nodes) == sum(len(c) for c in calls)

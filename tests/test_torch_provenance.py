@@ -64,6 +64,47 @@ def test_digest_equals_host_loop_on_random_payloads():
         assert tprov.digest_bytes(data) == want.hex()
 
 
+# 8 + 248 bytes are 64 words, the bucket's edge: 249 spill into 128 words
+BATCH_SIZES = [0, 1, 3, 4, 247, 248, 249, 250, 503, 504, 505, 3000]
+
+
+def test_digest_many_equals_digest_bytes_row_by_row():
+    rng = np.random.default_rng(21)
+    payloads = [rng.bytes(n) for n in BATCH_SIZES]
+    payloads += [payloads[3], b"", payloads[6], payloads[3]]   # repeats
+    got = tprov.digest_many(payloads)
+    assert got == [tprov.digest_bytes(p) for p in payloads]
+    assert got == [jprov.digest_bytes(p) for p in payloads]
+    assert got[len(BATCH_SIZES)] == got[3] == got[-1]
+    assert tprov.digest_many([]) == []
+    assert tprov.digest_many([b""]) == [jprov.digest_bytes(b"")]
+
+
+def test_digest_many_takes_one_launch_per_length(monkeypatch):
+    import repro_torch.kernels.cachekey_hash.ops as hops
+    shapes, orig = [], hops.cachekey_hash_op
+
+    def counting(tokens, out=None):
+        shapes.append(tuple(tokens.shape))
+        return orig(tokens, out)
+    monkeypatch.setattr(hops, "cachekey_hash_op", counting)
+    rng = np.random.default_rng(22)
+    payloads = [rng.bytes(n) for n in (10, 600, 20, 248, 249, 1200, 600)]
+    tprov.digest_many(payloads)
+    # lengths in words: 64, 192, 64, 64, 128, 320, 192
+    assert sorted(shapes) == [(1, 128), (1, 320), (2, 192), (3, 64)]
+
+
+def test_fingerprint_and_combine_payloads_digest_to_the_fingerprints():
+    t = tcore.GenericTransformer(lambda f: f, "payload-probe")
+    assert tprov.digest_bytes(tprov.fingerprint_payload(t)) == \
+        tprov.transformer_fingerprint(t) == t.fingerprint()
+    parts = ("node", "stage", "ab" * 8, "cd" * 8)
+    assert tprov.digest_bytes(tprov.combine_payload(*parts)) == \
+        tprov.combine_fingerprints(*parts) == \
+        jprov.combine_fingerprints(*parts)
+
+
 def test_digest_device_setting():
     assert tprov.set_digest_device("cpu") == "cpu"
     with pytest.raises(ValueError):
