@@ -28,8 +28,15 @@ Phases, one output line or more each, the JSON result last:
    and ``bm25_block`` over Table 2's 53 queries against
    ``BM25Retriever.score_query`` — with timings, the plain version's
    and the PyTorch library call's where there is one, and for the small
-   kernels (``cachekey_hash``, ``bm25_block``) the device-only time
-   from ``torch.profiler`` beside the CUDA-event time;
+   kernels (``cachekey_hash``, ``bm25_block``, ``embedding_bag``) the
+   device-only time from ``torch.profiler`` beside the CUDA-event time;
+   every ``embedding_bag`` row also prints the plan it took and its
+   share of the bytes bound, and MIND's rows (f32 and bf16) the host's
+   enqueue split into the bare ``ctypes`` call and the rest of the
+   wrapper, the kernels the profiler counts in one
+   ``embedding_bag_op(..., combiner="mean")`` call, two calls equal bit
+   for bit and small-integer inputs equal to the plain version bit for
+   bit;
 4. main path: the retrieve-and-rerank Experiment with BM25 and dense
    retrieval over ``msmarco_like(2, scale=1.0)`` at the cross-encoder's
    full width, once on the kernel path and once on the plain
@@ -119,7 +126,7 @@ FLASH_MAIN = "smollm-360m prefill"
 # (label, V, d, B, L, weights, combiner, dtype): the reference's
 # embedding_bag sweep (EB_SWEEP), kernels_bench.py's shapes, then MIND's
 # table (configs/mind.py) at serve_p99's batch with hist_len bags and
-# 0/1 history weights, the main shape
+# 0/1 history weights, the main shape, and the same in bf16
 EB_ROWS = [("sweep", 64, 32, 4, 5, "random", "sum", "float32"),
            ("sweep", 128, 48, 8, 3, None, "sum", "float32"),
            ("sweep", 1000, 64, 16, 10, "random", "mean", "float32"),
@@ -129,7 +136,9 @@ EB_ROWS = [("sweep", 64, 32, 4, 5, "random", "sum", "float32"),
            ("kernels_bench", 1_000_000, 64, 1024, 20, None, "sum",
             "float32"),
            ("MIND serve_p99", 1_000_000, 64, 512, 50, "0/1", "mean",
-            "float32")]
+            "float32"),
+           ("MIND serve_p99 bf16", 1_000_000, 64, 512, 50, "0/1", "mean",
+            "bfloat16")]
 EB_MAIN = "MIND serve_p99"
 # (label, T, D, poisson rate of tf): the reference's bm25_block sweep
 # and kernels_bench.py's tile; Table 2's queries follow
@@ -146,6 +155,8 @@ BM25_ROWS = [("sweep", 8, 128, 0.3), ("sweep", 20, 150, 0.3),
 TOL_FLASH = {"float32": (0.0, 2e-5), "bfloat16": (2 ** -7, 1e-4)}
 TOL_BAG = {"float32": 1e-5, "bfloat16": 6e-2}
 TOL_BM25 = 1e-4
+# what the name of the kernel of ``uint8_tensor.bitwise_not_()`` holds
+FLUSH_KERNEL = "bitwise_not"
 
 
 def log(msg: str) -> None:
@@ -258,30 +269,53 @@ def hash_bound(n: int, L: int):
     return (chain_ms, "operations") if chain_ms > ms else (ms, by)
 
 
-def device_ms(torch, fn, name: str, reps: int = 20):
-    """Device-only ms per call of ``fn`` spent in kernels whose name
-    holds ``name``, from ``torch.profiler``'s ``key_averages()`` over
-    ``reps`` calls (no L2 flush); None where the profiler shows no
-    device time for them."""
+def profile_kernels(torch, fn, reps: int = 20,
+                    flush_l2: bool = False) -> dict:
+    """{kernel name: (device ms, launches)} per call of ``fn``: the
+    device-side events of ``torch.profiler``'s ``key_averages()`` over
+    ``reps`` calls.  With ``flush_l2`` the 64 MB L2 flush runs before
+    each call, as in ``time_ms``, and its own kernels are left out."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+
+    def run(calls):
+        calls()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        if name in e.key:
-            t = getattr(e, "device_time_total", None)
-            total_us += t if t is not None else \
-                getattr(e, "cuda_time_total", 0.0)
-    if total_us <= 0:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                calls()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CPU:
+                us = float(getattr(e, "self_device_time_total", 0.0))
+                out[e.key] = (us / reps / 1e3, e.count / reps)
+        return out
+
+    if not flush_l2:
+        return run(fn)
+    # the flush is a bitwise not, so that its kernel is known by name
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def flushed():
+        flush.bitwise_not_()
+        fn()
+    return {k: v for k, v in run(flushed).items() if FLUSH_KERNEL not in k}
+
+
+def device_ms(torch, fn, name: str, reps: int = 20, flush_l2: bool = False):
+    """Device-only ms per call of ``fn`` spent in kernels whose name
+    holds ``name`` (``profile_kernels``; the L2 warm unless
+    ``flush_l2``); None where the profiler shows no device time for
+    them."""
+    total = sum(ms for k, (ms, _) in profile_kernels(
+        torch, fn, reps, flush_l2).items() if name in k)
+    if total <= 0:
         log(f"profiler: no device time for {name} (the row keeps the "
             f"CUDA-event time alone)")
         return None
-    return total_us / reps / 1e3
+    return total
 
 
 def host_us(torch, fn, reps: int = 200) -> float:
@@ -691,16 +725,60 @@ def check_flash_attention(torch, card: str) -> dict:
     return entry
 
 
+def bag_inputs(torch, gen, tab, B: int, L: int, weights):
+    """ids [B, L] int32 over ``tab``'s rows and the weights of an
+    EB_ROWS row: ``"random"`` uniform in [0, 1), ``"0/1"`` the first n
+    of L history slots (n uniform in 1..L), or None."""
+    ids = torch.randint(0, tab.shape[0], (B, L), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    if weights == "random":
+        w = torch.rand(B, L, generator=gen, device="cuda", dtype=tab.dtype)
+    elif weights == "0/1":
+        n = torch.randint(1, L + 1, (B, 1), generator=gen, device="cuda")
+        w = (torch.arange(L, device="cuda")[None, :] < n).to(tab.dtype)
+    else:
+        w = None
+    return ids, w
+
+
+def bag_bound(torch, tab, ids, w):
+    """(bound ms, what bounds it, distinct rows) of a bag sum: the rows
+    this run's ids touch read once, the ids and weights read once and
+    the bags written once, against 2 flops per gathered element."""
+    (B, L), d, elt = ids.shape, tab.shape[1], tab.element_size()
+    rows = int(torch.unique(ids).numel())
+    n_bytes = elt * (rows * d + B * d) + 4 * B * L \
+        + (w.element_size() * B * L if w is not None else 0)
+    return (*bound(n_bytes, 2 * B * L * d, FP32_FLOP_PER_S), rows)
+
+
+def plan_text(p) -> str:
+    return (f"plan vec {p.vec} B x {p.lanes} lanes, {p.groups} column "
+            f"group{'s' if p.groups > 1 else ''}, {p.rows_in_flight} rows in "
+            f"flight a warp, {p.warps} warp{'s' if p.warps > 1 else ''} a "
+            f"block x {p.grid} blocks, {p.bytes_in_flight / 2**20:.3g} MiB "
+            f"in flight ({p.bytes_in_flight_sm / 2**10:.3g} KiB on the "
+            f"busiest SM)")
+
+
 def check_embedding_bag(torch, card: str) -> dict:
     """embedding_bag_op at EB_ROWS against the plain version, with the
-    kernel, plain and ``F.embedding_bag`` times (the kernel and the
-    library call both compute the weighted sum; the mean combiner is
-    the op's division after it).  Returns the main row's entry."""
+    plan each row takes, the kernel's event and device-only times (L2
+    flushed) and its share of the bytes bound, and the plain and
+    ``F.embedding_bag`` times (the kernel and the library call both
+    compute the weighted sum).  At MIND's rows also: two calls equal bit
+    for bit; the host's enqueue, split into the bare ``ctypes`` entry
+    call and the rest of the wrapper; ``embedding_bag_op`` with the
+    row's combiner, its kernels a call as the profiler counts them and
+    its times; and small-integer tables and weights, where every
+    summation order is exact, equal to the plain version bit for bit.
+    Returns the main row's entry."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                    embedding_bag_op,
                                                    embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag.kernel import alignment, plan
     gen = torch.Generator(device="cuda").manual_seed(5)
     tables, entry = {}, None
     for label, V, d, B, L, weights, combiner, dt in EB_ROWS:
@@ -709,15 +787,7 @@ def check_embedding_bag(torch, card: str) -> dict:
             tables = {(V, d, dt): torch.randn(V, d, generator=gen,
                                               device="cuda", dtype=dtype)}
         tab = tables[(V, d, dt)]
-        ids = torch.randint(0, V, (B, L), generator=gen, device="cuda",
-                            dtype=torch.int32)
-        if weights == "random":
-            w = torch.rand(B, L, generator=gen, device="cuda", dtype=dtype)
-        elif weights == "0/1":           # the first n of L history slots
-            n = torch.randint(1, L + 1, (B, 1), generator=gen, device="cuda")
-            w = (torch.arange(L, device="cuda")[None, :] < n).to(dtype)
-        else:
-            w = None
+        ids, w = bag_inputs(torch, gen, tab, B, L, weights)
         got, n = driven(torch, lambda: embedding_bag_op(tab, ids, w,
                                                         combiner=combiner),
                         "embedding_bag", 1)
@@ -726,30 +796,87 @@ def check_embedding_bag(torch, card: str) -> dict:
         if not err <= TOL_BAG[dt]:
             raise AssertionError(f"embedding_bag {label} {(V, d, B, L)} {dt}: "
                                  f"max_abs_err {err} > {TOL_BAG[dt]}")
+        p = plan(V, d, B, L, dtype, alignment(tab))
         ids64 = ids.long()
-        ms = time_ms(torch, lambda: embedding_bag(tab, ids, w))
+
+        def kernel():
+            return embedding_bag(tab, ids, w)
+        ms = time_ms(torch, kernel)
+        dev_ms = device_ms(torch, kernel, "embedding_bag_kernel",
+                           flush_l2=True)
         plain_ms = time_ms(torch, lambda: embedding_bag_ref(tab, ids, w))
         library_ms = time_ms(torch, lambda: F.embedding_bag(
             ids64, tab, mode="sum", per_sample_weights=w))
-        # the rows this run's ids touch, read once
-        rows = int(torch.unique(ids).numel())
-        elt = tab.element_size()
-        n_bytes = elt * (rows * d + B * d) + 4 * B * L \
-            + (elt * B * L if w is not None else 0)
-        bound_ms, bound_by = bound(n_bytes, 2 * B * L * d, FP32_FLOP_PER_S)
+        bound_ms, bound_by, rows = bag_bound(torch, tab, ids, w)
+        share = f"{bound_ms / dev_ms:.1%}" if dev_ms else "not measured"
         log(f"kernels: embedding_bag {label} V={V} d={d} B={B} L={L} "
             f"weights={weights} {combiner} {dt}: max_abs_err {err:.3g} (tol "
-            f"{TOL_BAG[dt]}), {n} launch; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, F.embedding_bag(sum) {library_ms:.4f} ms "
-            f"(yardstick only), bound {bound_ms * 1e3:.4f} us ({bound_by}, "
-            f"{rows} distinct rows); {card}")
+            f"{TOL_BAG[dt]}), {n} launch; {plan_text(p)}; kernel (sum) "
+            f"{ms:.4f} ms, device-only {fmt_ms(dev_ms)} (profiler, L2 "
+            f"flushed), {share} of the bound; plain {plain_ms:.4f} ms, "
+            f"F.embedding_bag(sum) {library_ms:.4f} ms (yardstick only), "
+            f"bound {bound_ms * 1e3:.4f} us ({bound_by}, {rows} distinct "
+            f"rows); {card}")
+        if label.startswith("MIND"):
+            check_bag_at_mind(torch, card, label, tab, ids, w, combiner)
         if label == EB_MAIN:
             entry = {"launches": n, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms}
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms}
     del tables
     torch.cuda.empty_cache()
     return entry
+
+
+def check_bag_at_mind(torch, card, label, tab, ids, w, combiner) -> None:
+    """The MIND-row checks of ``check_embedding_bag``."""
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_op,
+                                                   embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag.kernel import launch_args
+    if not torch.equal(embedding_bag(tab, ids, w), embedding_bag(tab, ids, w)):
+        raise AssertionError(f"embedding_bag {label}: two calls differ")
+    call = launch_args(tab, ids, w)
+    bare_us = host_us(torch, lambda: call.entry(*call.args))
+    wrap_us = host_us(torch, lambda: embedding_bag(tab, ids, w))
+
+    def op():
+        return embedding_bag_op(tab, ids, w, combiner=combiner)
+    ks = profile_kernels(torch, op, flush_l2=True)
+    n_kernels = sum(c for _, c in ks.values())
+    if combiner == "mean" and n_kernels > 1:
+        raise AssertionError(f"embedding_bag_op {label} (mean): "
+                             f"{n_kernels:g} kernels a call, {sorted(ks)}")
+    op_ms = time_ms(torch, op)
+    log(f"kernels: embedding_bag {label}: two calls bit-identical; host "
+        f"enqueue {wrap_us:.1f} us a call: the bare ctypes entry call "
+        f"{bare_us:.1f} us (arguments prepared), the rest of the wrapper "
+        f"{wrap_us - bare_us:.1f} us (host clock, mean of 200); "
+        f"embedding_bag_op({combiner}) {op_ms:.4f} ms, {n_kernels:g} "
+        f"kernel{'s' if n_kernels != 1 else ''} a call on the device "
+        f"({sum(ms for ms, _ in ks.values()):.4f} ms, profiler, L2 flushed); "
+        f"{card}")
+    # small integers: every product and partial sum is exact, so the
+    # kernel equals the plain version bit for bit (a dropped or repeated
+    # row would not)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    itab = torch.randint(-8, 9, tab.shape, generator=gen, device="cuda") \
+        .to(tab.dtype)
+    iw = torch.randint(0, 4, ids.shape, generator=gen, device="cuda") \
+        .to(tab.dtype)
+    for c in ("sum", "mean"):
+        for ww in (None, iw):
+            got = embedding_bag_op(itab, ids, ww, combiner=c)
+            if not torch.equal(got, embedding_bag_ref(itab, ids, ww, c)):
+                raise AssertionError(f"embedding_bag {label}: integer "
+                                     f"entries, {c}, weights "
+                                     f"{'none' if ww is None else 'ints'}: "
+                                     f"not bit-identical to the plain "
+                                     f"version")
+    log(f"kernels: embedding_bag {label}: integer tables and weights, sum "
+        f"and mean, with and without weights: bit-identical to the plain "
+        f"version")
 
 
 def bm25_bound(tiles):

@@ -4,10 +4,18 @@ device.
 The tensor's device decides: CUDA tensors go to the hand-written
 kernel (which raises on anything it cannot take), CPU tensors to the
 plain version.  Nothing falls back from one to the other.  The kernel
-sums each bag; the ``mean`` combiner divides that sum here, after its
-cast to the table's dtype, as the reference's ops do.  The reference
-pads d to a multiple of 128 for the TPU's lanes; that does not change
-the result, and the kernel needs no padding.
+sums each bag.  The ``mean`` combiner divides that sum, after its cast
+to the table's dtype, by the bag's weight sum (or L) cast to the same
+dtype and held at 1e-9 or more, as the reference's ops do:
+
+* weights None or in the table's dtype: the kernel's epilogue divides,
+  with the weight sum taken in fp32 in l order; one launch;
+* weights in another dtype (say f32 weights on a bf16 table): the kernel
+  sums with the weights cast to the table's dtype, and the division
+  follows here, by the sum of the weights as given.
+
+The reference pads d to a multiple of 128 for the TPU's lanes; that does
+not change the result, and the kernel needs no padding.
 """
 from __future__ import annotations
 
@@ -36,12 +44,13 @@ def embedding_bag_op(table: torch.Tensor, ids: torch.Tensor,
         return torch.zeros((n_bags, d), dtype=table.dtype,
                            device=table.device)
     if table.device.type == "cuda":
-        out = embedding_bag(table.contiguous(), ids.contiguous(), weights)
-        if combiner == "sum":
+        fused = combiner == "mean" and (weights is None
+                                        or weights.dtype == table.dtype)
+        out = embedding_bag(table.contiguous(), ids.contiguous(), weights,
+                            mean=fused)
+        if combiner == "sum" or fused:
             return out
-        denom = (weights.sum(dim=1, keepdim=True) if weights is not None
-                 else torch.full((1, 1), float(ids.shape[1]),
-                                 device=out.device))
+        denom = weights.sum(dim=1, keepdim=True)
         return out / torch.clamp(denom.to(out.dtype), min=1e-9)
     if table.device.type == "cpu":
         return embedding_bag_ref(table, ids, weights, combiner)
