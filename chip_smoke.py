@@ -50,7 +50,15 @@ Phases, one output line or more each, the JSON result last:
    per (level, length) group of its batched digests) and per run, the
    host ms of a plan's digests batched and row by row, and a check that
    both give the same node fingerprints and plan id;
-6. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+6. Table 2 through the planner: the four bm25 systems by
+   ``Experiment(..., precompute_mode="plan", cache_dir=...)``, cold then
+   hot, with the work each run does (BM25 queries, Mono and Duo pairs,
+   cache hits and misses, plan nodes executed, node cache directories,
+   ``cachekey_hash`` launches) and the hot run's host seconds per plan
+   node; then the main path's six systems the same way, whose dense
+   retrievers launch ``dense_topk`` cold and are served by their
+   ``RetrieverCache`` hot; means equal to the uncached runs';
+7. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
@@ -236,13 +244,14 @@ def setup_main_path(torch) -> SimpleNamespace:
         assert all(p.device.type == "cuda" for p in enc.parameters())
     assert dense_index.matrix.device.type == "cuda"
 
-    def run(backend: str):
+    def run(backend: str, **kw):
         bm25 = index.bm25(num_results=200)
         dense = dense_index.retriever(200, backend=backend)
         systems = ([bm25 % k >> tl >> mono % 10 >> duo for k in CUTS]
                    + [dense % 200 >> tl >> mono % 10 >> duo,
                       (bm25 % 100 | dense % 100) >> tl >> mono % 10 >> duo])
-        return Experiment(systems, topics, qrels, MEASURES, names=NAMES)
+        return Experiment(systems, topics, qrels, MEASURES, names=NAMES,
+                          **kw)
 
     return SimpleNamespace(topics=topics, qrels=qrels, index=index, tl=tl,
                            dense_enc=dense_enc, dense_index=dense_index,
@@ -979,6 +988,36 @@ def check_bm25_block(torch, card: str, mp) -> dict:
             "library_ms": None}
 
 
+def counting_bm25(mp):
+    """A fresh BM25 retriever of the main path at depth 200, and a
+    one-item list that counts the queries it retrieves for."""
+    bm25 = mp.index.bm25(num_results=max(CUTS))
+    seen = [0]
+    orig = bm25.transform
+
+    def counting(inp):
+        seen[0] += len(inp)
+        return orig(inp)
+    bm25.transform = counting
+    return bm25, seen
+
+
+def same_results(label, res, base, names) -> float:
+    """Raise unless ``res`` has ``base``'s means and per-query values to
+    1e-6; returns the largest per-query difference."""
+    worst = 0.0
+    for n in names:
+        for m in MEASURES:
+            if abs(res.means[n][m] - base.means[n][m]) > 1e-6:
+                raise AssertionError(f"{label} {n} {m}: {res.means[n][m]} "
+                                     f"vs {base.means[n][m]}")
+            for qid, v in base.per_query[n][m].items():
+                worst = max(worst, abs(res.per_query[n][m][qid] - v))
+    if worst > 1e-6:
+        raise AssertionError(f"{label}: per-query values differ by {worst}")
+    return worst
+
+
 def run_table2(torch, card: str, mp) -> dict:
     """The paper's Table 2 in its four settings through the port's entry
     points; raises unless the claims hold, every setting's means equal
@@ -999,14 +1038,7 @@ def run_table2(torch, card: str, mp) -> dict:
     digest_many = prov.digest_many
     try:
         for setting, (pre, cached) in enumerate(TABLE2_SETTINGS, start=1):
-            bm25 = mp.index.bm25(num_results=max(CUTS))
-            seen = [0]
-            orig = bm25.transform
-
-            def counting(inp, _orig=orig, _seen=seen):
-                _seen[0] += len(inp)
-                return _orig(inp)
-            bm25.transform = counting
+            bm25, seen = counting_bm25(mp)
             cache = None if cached is None else ScorerCache(
                 str(Path(cache_root) / "mono"), mp.mono, backend="sqlite")
             stage = mp.mono if cache is None else cache
@@ -1048,18 +1080,8 @@ def run_table2(torch, card: str, mp) -> dict:
         shutil.rmtree(cache_root, ignore_errors=True)
 
     base = rows[0]["res"]
-    worst = 0.0
-    for r in rows[1:]:
-        for n in names:
-            for m in MEASURES:
-                if abs(r["res"].means[n][m] - base.means[n][m]) > 1e-6:
-                    raise AssertionError(
-                        f"table2 setting {r['setting']} {n} {m}: "
-                        f"{r['res'].means[n][m]} vs setting 1 "
-                        f"{base.means[n][m]}")
-                for qid, v in base.per_query[n][m].items():
-                    worst = max(worst,
-                                abs(r["res"].per_query[n][m][qid] - v))
+    worst = max(same_results(f"table2 setting {r['setting']}", r["res"],
+                             base, names) for r in rows[1:])
     log(f"table2: means of settings 2-4 equal setting 1's to 1e-6; "
         f"largest per-query difference {worst:.3g}; setting 1 "
         f"k=200 {json.dumps(base.means['k=200'])}")
@@ -1129,6 +1151,113 @@ def run_table2(torch, card: str, mp) -> dict:
                    key=lambda x: x[1])
     return {"rows": rows, "batch": (n, width), "groups": groups,
             "launches": sum(r["cachekey_hash_launches"] for r in rows)}
+
+
+def run_table2_planner(torch, card: str, mp, table2_base, main_res) -> dict:
+    """Table 2's four bm25 systems, then the main path's six systems,
+    each through ``Experiment(..., precompute_mode="plan",
+    cache_dir=...)`` cold then hot.  Raises unless the hot Table 2 run
+    invokes BM25 and Mono on nothing, scores as many Duo pairs as the
+    cold one (Duo is ``cacheable=False``) and misses nothing; every run
+    launches ``cachekey_hash``; the dense retrievers launch
+    ``dense_topk`` cold and never hot; and the means and per-query
+    values equal the uncached runs' (Table 2's setting (1), the main
+    path's kernel run) to 1e-6.  Returns the launches of each kernel."""
+    from repro_torch.core import Experiment
+    from repro_torch.kernels.cachekey_hash import cachekey_hash
+    from repro_torch.kernels.dense_topk import dense_topk
+
+    names = [f"k={k}" for k in CUTS]
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="table2-planner-", dir=str(build)))
+    rows, dense_rows = [], []
+    try:
+        for run in ("cold", "hot"):
+            bm25, seen = counting_bm25(mp)
+            systems = [bm25 % k >> mp.tl >> mp.mono % 10 >> mp.duo
+                       for k in CUTS]
+            mono0, duo0 = mp.mono.invocations, mp.duo.invocations
+            cachekey_hash.launches = 0
+            t = time.perf_counter()
+            res = Experiment(systems, mp.topics, mp.qrels, MEASURES,
+                             precompute_prefix=True, precompute_mode="plan",
+                             cache_dir=str(root / "table2"), names=names)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            st = res.precompute
+            rows.append({
+                "run": run, "wall_s": wall, "bm25_queries": seen[0],
+                "mono_pairs": mp.mono.invocations - mono0,
+                "duo_pairs": mp.duo.invocations - duo0,
+                "cache_hits": st.cache_hits, "cache_misses": st.cache_misses,
+                "nodes_executed": st.nodes_executed,
+                "nodes_planned": st.nodes_planned,
+                "cachekey_hash_launches": cachekey_hash.launches,
+                "node_dirs": len([d for d in (root / "table2").iterdir()
+                                  if d.name != "plans"])})
+            log("table2_planner: " + json.dumps(rows[-1]))
+            rows[-1]["worst"] = same_results(
+                f"table2_planner {run}", res, table2_base, names)
+            rows[-1]["node_times_s"] = st.node_times_s
+        hot = rows[1]["node_times_s"]
+        log("table2_planner: hot run, host s per plan node (the caches' "
+            "reads and Duo): " + json.dumps(
+                {k[:48]: round(v, 4) for k, v in
+                 sorted(hot.items(), key=lambda kv: -kv[1])}))
+
+        for run in ("cold", "hot"):
+            dense_topk.launches = 0
+            cachekey_hash.launches = 0
+            t = time.perf_counter()
+            res = mp.run("cuda", precompute_prefix=True,
+                         precompute_mode="plan",
+                         cache_dir=str(root / "dense"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            st = res.precompute
+            dense_rows.append({
+                "run": run, "wall_s": wall,
+                "dense_topk_launches": dense_topk.launches,
+                "cachekey_hash_launches": cachekey_hash.launches,
+                "cache_hits": st.cache_hits, "cache_misses": st.cache_misses,
+                "nodes_executed": st.nodes_executed,
+                "node_dirs": len([d for d in (root / "dense").iterdir()
+                                  if d.name != "plans"])})
+            log("table2_planner: dense " + json.dumps(dense_rows[-1]))
+            dense_rows[-1]["worst"] = same_results(
+                f"table2_planner dense {run}", res, main_res, NAMES)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    cold, hot = rows
+    if hot["bm25_queries"] != 0 or hot["mono_pairs"] != 0:
+        raise AssertionError("table2_planner: the hot run invoked BM25 or "
+                             "Mono")
+    if hot["duo_pairs"] != cold["duo_pairs"]:
+        raise AssertionError("table2_planner: Duo is not cacheable, yet the "
+                             "hot run scored other Duo pairs than the cold")
+    if hot["cache_misses"] != 0 or dense_rows[1]["cache_misses"] != 0:
+        raise AssertionError("table2_planner: a hot run missed")
+    if min(r["cachekey_hash_launches"] for r in rows + dense_rows) < 1:
+        raise AssertionError("table2_planner: a plan never launched "
+                             "cachekey_hash")
+    if dense_rows[0]["dense_topk_launches"] < 1:
+        raise AssertionError("table2_planner: the cold dense run never "
+                             "launched dense_topk")
+    if dense_rows[1]["dense_topk_launches"] != 0:
+        raise AssertionError("table2_planner: the hot dense run launched "
+                             "dense_topk; its RetrieverCache should serve it")
+    log(f"table2_planner: means and per-query values equal setting 1's "
+        f"(largest difference {max(r['worst'] for r in rows):.3g}) and the "
+        f"uncached dense Experiment's "
+        f"({max(r['worst'] for r in dense_rows):.3g}); walls cold / hot: "
+        f"Table 2 {cold['wall_s']:.3f} / {hot['wall_s']:.3f} s, dense "
+        f"Experiment {dense_rows[0]['wall_s']:.3f} / "
+        f"{dense_rows[1]['wall_s']:.3f} s; {card}")
+    return {"cachekey_hash": sum(r["cachekey_hash_launches"]
+                                 for r in rows + dense_rows),
+            "dense_topk": sum(r["dense_topk_launches"] for r in dense_rows)}
 
 
 def row_by_row_fingerprints(graph):
@@ -1231,18 +1360,8 @@ def main() -> int:
 
     t = time.perf_counter()
     plain = mp.run("torch")
-    worst = 0.0
-    for n in NAMES:
-        for m in MEASURES:
-            if abs(res.means[n][m] - plain.means[n][m]) > 1e-6:
-                raise AssertionError(
-                    f"{n} {m}: kernel path {res.means[n][m]} vs plain "
-                    f"path {plain.means[n][m]}")
-            for qid, v in plain.per_query[n][m].items():
-                worst = max(worst, abs(res.per_query[n][m][qid] - v))
-    if worst > 1e-6:
-        raise AssertionError(f"main: per-query values differ by {worst} "
-                             f"between the kernel and plain paths")
+    worst = same_results("main: the kernel path against the plain path",
+                         res, plain, NAMES)
     log(f"main: backend='torch' means and per-query values equal to 1e-6 "
         f"(largest per-query difference {worst:.3g}; "
         f"{time.perf_counter() - t:.1f} s)")
@@ -1252,6 +1371,12 @@ def main() -> int:
     t2 = run_table2(torch, card, mp)
     log(f"table2: four settings in {time.perf_counter() - t:.1f} s, "
         f"cachekey_hash.launches {t2['launches']}")
+
+    # -- 6. Table 2 and the main path through the planner's caches ---------
+    t = time.perf_counter()
+    planner = run_table2_planner(torch, card, mp, t2["rows"][0]["res"], res)
+    log(f"table2_planner: in {time.perf_counter() - t:.1f} s, launches "
+        f"{json.dumps(planner)}")
 
     # the hash kernel at the main path's largest digest batch
     n_main, L_main = t2["batch"]
@@ -1272,17 +1397,18 @@ def main() -> int:
         f"{hash_timed[(1, 64)][0]:.4f} ms, at (65536, 64): "
         f"{hash_timed[(65536, 64)][0]:.4f} ms; {card}")
 
-    # -- 6. result lines ----------------------------------------------------
+    # -- 7. result lines ----------------------------------------------------
     log(json.dumps({"kernels": [{
         "name": "dense_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/dense_topk/csrc/dense_topk.cu",
         "replaces": "src/repro/kernels/dense_topk/kernel.py:96",
-        "launches": launches, **topk_entry}, {
+        "launches": launches + planner["dense_topk"], **topk_entry}, {
         "name": "cachekey_hash", "route": "cuda",
         "source": "src/repro_torch/kernels/cachekey_hash/csrc/"
                   "cachekey_hash.cu",
         "replaces": "src/repro/kernels/cachekey_hash/kernel.py:54",
-        "launches": t2["launches"], "max_abs_err": 0, "ms": h_ms,
+        "launches": t2["launches"] + planner["cachekey_hash"],
+        "max_abs_err": 0, "ms": h_ms,
         "plain_ms": h_plain, "bound_ms": h_bound, "bound_by": h_by,
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",

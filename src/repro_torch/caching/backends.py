@@ -3,9 +3,11 @@
 Counterpart of ``repro.caching.backends``: the same store formats, so a
 directory written by either package opens in the other.  The
 combinator selectors ``"tiered[:<disk>]"`` and ``"mmap[:<disk>]"``
-validate and normalize as in the reference, but opening one raises
-``NotImplementedError``: their tiers come with the port's
-plan-inserted-caches slice.
+validate and normalize as in the reference; ``"tiered"`` opens a
+:class:`~repro_torch.caching.tiered.TieredBackend`, while opening an
+``"mmap"`` selector raises ``NotImplementedError``: its snapshot tier
+comes with the port's tiers-and-data-plane slice (ROADMAP Queue A
+item 3).
 
 Before this module each cache family rolled its own persistence —
 ``KeyValueCache`` embedded SQLite, ``RetrieverCache`` embedded ``dbm``,
@@ -735,10 +737,11 @@ def resolve_backend_name(spec: Union[str, CacheBackend, None],
 
     Besides the registry names, the combinator selectors compose an
     accelerator tier over a named disk backend — ``"tiered[:<disk>]"``
-    (the reference's ``TieredBackend``, a memory-LRU front) and
-    ``"mmap[:<disk>]"`` (its ``MmapTier``, a packed read-only snapshot
-    shared across processes) — and normalize to the explicit
-    ``"<combinator>:<disk>"`` form (what manifests record).
+    (:class:`~repro_torch.caching.tiered.TieredBackend`, a memory-LRU
+    front) and ``"mmap[:<disk>]"`` (the reference's ``MmapTier``, a
+    packed read-only snapshot shared across processes) — and normalize
+    to the explicit ``"<combinator>:<disk>"`` form (what manifests
+    record).
 
     Raises ``TypeError`` for selectors that are neither a name, an
     instance nor ``None``, and ``ValueError`` (listing every registered
@@ -787,17 +790,24 @@ def select_backend(selector: Union[str, CacheBackend, None],
 def open_backend(spec: Union[str, CacheBackend, None], path: Optional[str],
                  default: str = "sqlite") -> CacheBackend:
     """Resolve a ``backend=`` argument: an instance passes through, a
-    name is looked up in ``BACKENDS``, ``None`` means ``default``.
-    The ``"tiered[:<disk>]"`` and ``"mmap[:<disk>]"`` combinators raise
-    ``NotImplementedError`` (not ported yet).  Unknown selectors raise
-    with the registered selectors spelled out."""
+    name is looked up in ``BACKENDS``, ``None`` means ``default``,
+    ``"tiered[:<disk>]"`` builds a ``TieredBackend`` over the named disk
+    backend, and ``"mmap[:<disk>]"`` raises ``NotImplementedError`` (not
+    ported yet).  Unknown selectors raise with the registered selectors
+    spelled out."""
     if isinstance(spec, CacheBackend):
         return spec
     name = resolve_backend_name(spec, default)
-    if split_combinator(name) is not None:
+    combo = split_combinator(name)
+    if combo is not None:
+        combinator, disk = combo
+        if combinator == "tiered":
+            from .tiered import TieredBackend   # deferred: imports us
+            return TieredBackend(path, disk=disk)
         raise NotImplementedError(
-            f"cache backend {name!r}: the tiered and mmap tiers arrive "
-            f"with the plan-inserted-caches slice of repro_torch")
+            f"cache backend {name!r}: the mmap snapshot tier arrives with "
+            f"the tiers-and-data-plane slice of repro_torch (ROADMAP "
+            f"Queue A item 3)")
     return BACKENDS[name](path)
 
 

@@ -288,11 +288,15 @@ def open_family_for_dir(dirpath: str, manifest: CacheManifest):
             dirpath, None, key=tuple(manifest.key_columns) or "text",
             value=tuple(manifest.value_columns) or "text",
             backend=backend, **common)
-    if family in ("RetrieverCache", "DenseScorerCache") \
-            or backend == "dense":
-        raise NotImplementedError(
-            f"cache family {family!r}: RetrieverCache and DenseScorerCache "
-            f"arrive with the plan-inserted-caches slice of repro_torch")
+    if family == "RetrieverCache":
+        from .retriever import RetrieverCache
+        return RetrieverCache(
+            dirpath, None,
+            key=tuple(manifest.key_columns) or ("qid", "query"),
+            backend=backend, **common)
+    if family == "DenseScorerCache" or backend == "dense":
+        from .dense import DenseScorerCache
+        return DenseScorerCache(dirpath, None, **common)
     return None
 
 

@@ -1,7 +1,7 @@
 # The paper's primary contribution: declarative IR pipelines (relation
 # store + transformer algebra), prefix precomputation in experiments
 # through the plan compiler, and the Experiment abstraction
-# (counterpart of repro.core; compile_opt comes with a later slice).
+# (counterpart of repro.core).
 from .frame import ColFrame, Q, D, R, RA, relation_of
 from .pipeline import (Transformer, Indexer, Compose, RankCutoff,
                        LinearCombine, ScalarProduct, FeatureUnion, SetUnion,
@@ -11,6 +11,7 @@ from .pipeline import (Transformer, Indexer, Compose, RankCutoff,
 from .precompute import (longest_common_prefix, split_on_prefix,
                          run_with_precompute, PrefixTrie, run_with_trie,
                          PrecomputeStats)
+from .compile_opt import compile_pipeline
 from .ir import IRNode, PlanGraph, lower, render_explain
 from .rewrite import OPTIMIZER_PASSES, PassStats
 from .cost import CostContext, CostModel
@@ -29,6 +30,6 @@ __all__ = [
     "ExecutionPlan", "PlanNode", "PlanStats", "plan_size",
     "IRNode", "PlanGraph", "lower", "render_explain",
     "OPTIMIZER_PASSES", "PassStats", "CostContext", "CostModel",
-    "Measure", "parse_measure", "evaluate",
+    "compile_pipeline", "Measure", "parse_measure", "evaluate",
     "Experiment", "ExperimentResult",
 ]

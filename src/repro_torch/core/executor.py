@@ -11,8 +11,15 @@ have identical semantics:
   frame is partitioned into qid-aligned shards and (node, shard) tasks
   run on a thread pool as their per-shard inputs complete.
 
-The reference's cache prefetcher, cache warming and streaming executor
-come with the port's plan-inserted caches and serving.
+Both understand the ``cache-prune`` annotations of ``core/rewrite.py``:
+a node with a ``probe_input`` is evaluated *lookup-first* — its memo
+cache is probed with the deferred chain's input, and the chain
+(``inline_chain``) only executes when the store cannot serve every key.
+Deferred nodes are excluded from normal scheduling; they run inline
+inside their consumer's task.
+
+The reference's cache prefetcher and cache warming come with the
+port's async data plane, its streaming executor with serving.
 
 Scheduling invariants: every node runs **at most once per shard**
 (results are memoized per node instance, never recomputed for a second
@@ -119,11 +126,12 @@ def resolve_n_shards(graph: PlanGraph, frame: ColFrame,
 def _exec_node(node: IRNode, ins: List[ColFrame],
                batch_size: Optional[int]) -> ColFrame:
     if node.kind == "stage":
+        runner = node.cache if node.cache is not None else node.stage
         if not node.shardable:
             # batching partitions the frame exactly like sharding
             # would — a cross-query stage must see it whole
-            return node.stage(ins[0])
-        return _run_stage(node.stage, ins[0], batch_size)
+            return runner(ins[0])
+        return _run_stage(runner, ins[0], batch_size)
     if node.kind == "scale":
         return node.stage.apply(ins[0])
     return node.stage.combine(ins[0], ins[1])              # combine
@@ -141,17 +149,50 @@ class _Recorder:
             self.records.append((label, shard, t0, t1))
 
 
+def _effective_inputs(node: IRNode) -> List[IRNode]:
+    """The inputs a scheduler must wait for.  Cache-prune: a probing
+    node waits on the deferred chain's *input*; the chain itself runs
+    inline inside this node's task."""
+    if node.probe_input is not None and node.cache is not None:
+        return [node.probe_input]
+    return node.inputs
+
+
 def _wave_edges(graph: PlanGraph
                 ) -> Tuple[List[IRNode], Dict[int, List[IRNode]]]:
     """(schedulable nodes, input-id → consumers) — the wavefront edge
     structure of the sharded scheduler.  Nodes are addressed by
     instance id throughout."""
-    schedulable = [n for n in graph.nodes if n.kind != "source"]
+    schedulable = [n for n in graph.nodes
+                   if n.kind != "source" and not n.inlined]
     children: Dict[int, List[IRNode]] = {}
     for node in schedulable:
-        for inp in node.inputs:
+        for inp in _effective_inputs(node):
             children.setdefault(inp.id, []).append(node)
     return schedulable, children
+
+
+def _exec_with_probe(node: IRNode, probe_frame: ColFrame,
+                     batch_size: Optional[int], shard: int,
+                     rec: _Recorder) -> ColFrame:
+    """Lookup-first evaluation of a cache-prune annotated node: serve
+    from the warm store keyed off ``probe_frame``; on any miss, execute
+    the deferred chain to build the node's real input, then run the
+    memoized stage normally."""
+    t0 = time.perf_counter()
+    out = node.cache.serve_from_store(probe_frame)
+    if out is not None:
+        rec.add(node.label, shard, t0, time.perf_counter())
+        return out
+    v = probe_frame
+    for ch in node.inline_chain:
+        t1 = time.perf_counter()
+        v = _exec_node(ch, [v], batch_size)
+        rec.add(ch.label, shard, t1, time.perf_counter())
+    t1 = time.perf_counter()
+    out = _exec_node(node, [v], batch_size)
+    rec.add(node.label, shard, t1, time.perf_counter())
+    return out
 
 
 def run_sequential(graph: PlanGraph, frame: ColFrame,
@@ -166,10 +207,14 @@ def run_sequential(graph: PlanGraph, frame: ColFrame,
         memo = results.get(node.id)
         if memo is not None:
             return memo
-        ins = [evaluate(i) for i in node.inputs]
-        t0 = time.perf_counter()
-        out = _exec_node(node, ins, batch_size)
-        rec.add(node.label, 0, t0, time.perf_counter())
+        if node.probe_input is not None and node.cache is not None:
+            out = _exec_with_probe(node, evaluate(node.probe_input),
+                                   batch_size, 0, rec)
+        else:
+            ins = [evaluate(i) for i in node.inputs]
+            t0 = time.perf_counter()
+            out = _exec_node(node, ins, batch_size)
+            rec.add(node.label, 0, t0, time.perf_counter())
         results[node.id] = out
         return out
 
@@ -202,7 +247,7 @@ def run_concurrent(graph: PlanGraph, frame: ColFrame,
     indeg: Dict[Tuple[int, int], int] = {}
     for node in schedulable:
         for s in range(n_shards):
-            indeg[(node.id, s)] = len(node.inputs)
+            indeg[(node.id, s)] = len(_effective_inputs(node))
 
     # ready tasks pop in critical-path order: the operand-order pass
     # stamps each node's sched_priority with its own estimated cost plus
@@ -227,10 +272,14 @@ def run_concurrent(graph: PlanGraph, frame: ColFrame,
         complete(graph.source.id, s)
 
     def exec_task(node: IRNode, s: int) -> None:
-        ins = [results[(i.id, s)] for i in node.inputs]
-        t0 = time.perf_counter()
-        out = _exec_node(node, ins, batch_size)
-        rec.add(node.label, s, t0, time.perf_counter())
+        if node.probe_input is not None and node.cache is not None:
+            out = _exec_with_probe(node, results[(node.probe_input.id, s)],
+                                   batch_size, s, rec)
+        else:
+            ins = [results[(i.id, s)] for i in node.inputs]
+            t0 = time.perf_counter()
+            out = _exec_node(node, ins, batch_size)
+            rec.add(node.label, s, t0, time.perf_counter())
         results[(node.id, s)] = out
 
     with ThreadPoolExecutor(max_workers=workers) as pool:

@@ -9,9 +9,8 @@ guidance cited by the paper).
 ``precompute_prefix=True`` enables the paper's §3 LCP precomputation;
 ``precompute_mode="trie"`` enables the beyond-paper maximal-coverage
 trie (resolves the §6 ablation limitation).  Both run through the plan
-compiler (``core/plan.py``).  Planner-inserted caches (``cache_dir=``,
-``cache_backend=``, ``on_stale=``) arrive in a later slice of the port
-and raise ``NotImplementedError``.
+compiler (``core/plan.py``), which in plan mode also inserts the §4
+caches under a ``cache_dir``.
 """
 from __future__ import annotations
 
@@ -156,9 +155,9 @@ def Experiment(
     names: Optional[Sequence[str]] = None,
     precompute_prefix: bool = False,
     precompute_mode: str = "lcp",          # "lcp" (§3) | "trie" | "plan"
-    cache_dir: Optional[str] = None,       # plan mode: not ported yet
-    cache_backend: Optional[str] = None,   # plan mode: not ported yet
-    on_stale: str = "error",               # plan mode: not ported yet
+    cache_dir: Optional[str] = None,       # plan mode: auto-insert caches
+    cache_backend: Optional[str] = None,   # plan mode: backend registry name
+    on_stale: str = "error",               # plan mode: stale-cache policy
     optimize: Any = "all",                 # plan mode: optimizer pass knob
     n_shards: Optional[int] = None,        # plan mode: concurrent executor
     max_workers: Optional[int] = None,
@@ -177,15 +176,17 @@ def Experiment(
 
     ``precompute_mode`` selects the sharing strategy: ``"lcp"`` reports
     the paper-§3 accounting, ``"trie"`` maximal prefix sharing, and
-    ``"plan"`` the full execution planner (``core/plan.py``), which
-    additionally shares through binary operator nodes; ``optimize``
-    selects its passes (``"all"`` / ``"none"`` / list of names — see
-    ``core/rewrite.py``).  In every mode ``n_shards`` / ``max_workers``
-    enable the concurrent sharded executor.  All three execute through
-    the planner; results are identical.  ``cache_dir``,
-    ``cache_backend`` and ``on_stale`` configure planner-inserted
-    caches, which the port does not have yet: setting any of them
-    raises ``NotImplementedError``.
+    ``"plan"`` the full execution planner (``core/plan.py``) — which
+    additionally shares through binary operator nodes and, given a
+    ``cache_dir``, auto-inserts the §4 explicit caches per DAG node
+    (``cache_backend`` selects their storage backend; ``on_stale``
+    picks the policy when a cache directory's recorded provenance
+    fingerprint mismatches — see ``caching/provenance.py``).  In plan mode
+    ``optimize`` selects the optimizer passes (``"all"`` / ``"none"`` /
+    list of names — see ``core/rewrite.py``).  In every mode
+    ``n_shards`` / ``max_workers`` enable the concurrent sharded
+    executor.  All three execute through the planner; results are
+    identical.
     """
     topics = ColFrame.coerce(topics)
     qrels = ColFrame.coerce(qrels)
@@ -196,13 +197,6 @@ def Experiment(
     names = [str(n) for n in names]
     if len(names) != len(systems):
         raise ValueError("names must align with systems")
-    if cache_dir is not None or cache_backend is not None \
-            or on_stale != "error":
-        raise NotImplementedError(
-            "Experiment(cache_dir=, cache_backend=, on_stale=): "
-            "planner-inserted caches arrive with the plan-inserted-caches "
-            "slice of repro_torch; wrap a stage in a cache by hand "
-            "(ScorerCache(path, stage)) meanwhile")
 
     t0 = time.perf_counter()
     stats: Optional[PrecomputeStats] = None
@@ -211,7 +205,9 @@ def Experiment(
     if precompute_prefix and len(systems) > 1:
         if precompute_mode == "plan":
             from .plan import ExecutionPlan
-            with ExecutionPlan(systems, optimize=optimize) as plan:
+            with ExecutionPlan(systems, cache_dir=cache_dir,
+                               cache_backend=cache_backend,
+                               on_stale=on_stale, optimize=optimize) as plan:
                 outs, stats = plan.run(topics, batch_size=batch_size,
                                        n_shards=n_shards,
                                        max_workers=max_workers)

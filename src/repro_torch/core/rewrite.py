@@ -1,6 +1,6 @@
 """Optimizer passes over the logical plan IR (``core/ir.py``).
 
-Counterpart of ``repro.core.rewrite`` with its four structural passes.
+Counterpart of ``repro.core.rewrite``, with all seven passes.
 
 The optimizer is an ordered pass pipeline; each pass is a
 ``(PlanGraph) -> PassStats`` rewrite with its own accounting, selected
@@ -29,8 +29,17 @@ through ``ExecutionPlan(optimize=...)``:
   and absorption is sound only because ``with_cutoff`` implementations
   guarantee a deterministic total order (score desc, then doc index),
   making every top-k a prefix of the top-n.
-* ``"cache-prune"`` — cache-aware pruning behind warm planner-inserted
-  caches (runs after memo insertion).
+* ``"cache-prune"`` — cache-aware pruning (runs after planner memo
+  insertion): consults the provenance manifests (``caching/provenance``)
+  of planner-inserted caches and, for memo nodes whose store is warm
+  and whose output is assembled purely from the store
+  (``serve_from_store``), marks exclusive ``augment_only`` upstream
+  stages as *deferred*: the executor probes the cache with the
+  upstream chain's input first and only executes the chain on a miss.
+  Invariant: only **exclusive, augment-only** upstream chains are
+  deferred — augment-only stages cannot alter the keys the memo is
+  probed with, and exclusivity guarantees no other consumer observes
+  the skipped intermediate.
 
 Three further passes are *cost-aware*: they consume the
 :class:`~repro_torch.core.cost.CostContext` the planner attaches as
@@ -46,24 +55,32 @@ without one:
   ``commutative=True`` (whose ``combine`` is symmetric) are reordered,
   and memo digests / provenance fingerprints key off
   commutative-canonical forms, so a swap never cools a warm cache.
-* ``"cache-place"`` — skips or memory-fronts planner-inserted caches;
-* ``"autotune"`` — chooses executor/serving knobs from measured history.
+* ``"cache-place"`` — skips planner-inserted caches on nodes whose
+  estimated recompute is cheaper than the measured backend round-trip
+  (a memo there only adds latency and disk), and promotes hot
+  expensive nodes on a bare disk backend to a ``tiered:<disk>``
+  memory-fronted selector.  Skipping requires *measured or analytic*
+  evidence — a default prior never loses a cache — and never fires
+  when the round-trip is cheaper than recompute.
+* ``"autotune"`` — chooses executor/serving knobs (``n_shards``,
+  ``max_batch`` / ``max_wait_ms``) from the manifest's measured run
+  history and online batch-occupancy / queue-depth stats, surfaced as
+  ``graph.tuning`` / ``ExecutionPlan.tuning()`` (the reference's
+  ``serve`` reads them through ``max_batch="auto"``; the port's
+  serving comes with a later slice).
 
-``cache-prune``, ``cache-place`` and ``autotune`` run only when a plan
-inserts caches, which the port's ``ExecutionPlan`` does not do yet:
-their names stay in the registry, so ``optimize="all"`` resolves the
-reference's list, and running one raises ``NotImplementedError``.
-
-Invariant: for any pipeline algebra, results with ``optimize="all"``
-and ``optimize="none"`` — and with the cost-aware passes on or off —
-are bit-identical per qid — same (qid, docno, score, rank) values under
-canonical row order — in both the sequential and the sharded executor.
+Invariant: for any pipeline algebra, results with
+``optimize="all"`` and ``optimize="none"`` — and with the cost-aware
+passes on or off — are bit-identical per qid — same (qid, docno,
+score, rank) values under canonical row order — in both the sequential
+and the sharded executor.
 """
 from __future__ import annotations
 
+import os
 import time
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from .ir import IRNode, PlanGraph, make_stage_node, node_key
 from .pipeline import RankCutoff
@@ -135,14 +152,11 @@ def resolve_passes(optimize: Union[str, Sequence[str], None]) -> List[str]:
 
 def run_pass(graph: PlanGraph, name: str) -> PassStats:
     """Run one pass by name, returning its stats."""
-    if name in PLACEMENT_PASSES + POST_MEMO_PASSES:
-        raise NotImplementedError(
-            f"optimizer pass {name!r} acts on planner-inserted caches, "
-            f"which arrive with the plan-inserted-caches slice of "
-            f"repro_torch")
     fn = {"normalize": _pass_normalize, "cse": _pass_cse,
-          "pushdown": _pass_pushdown,
-          "operand-order": _pass_operand_order}[name]
+          "pushdown": _pass_pushdown, "cache-prune": _pass_cache_prune,
+          "operand-order": _pass_operand_order,
+          "cache-place": _pass_cache_place,
+          "autotune": _pass_autotune}[name]
     stats = PassStats(name=name, nodes_before=graph.n_nodes())
     t0 = time.perf_counter()
     fn(graph, stats)
@@ -288,6 +302,46 @@ def _pushdown_round(graph: PlanGraph, stats: PassStats) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# cache-prune — defer exclusive augment-only chains behind warm caches
+# ---------------------------------------------------------------------------
+
+def _pass_cache_prune(graph: PlanGraph, stats: PassStats) -> None:
+    consumers = graph.consumers()
+    terminal_ids = {t.id for t in graph.terminals}
+    for node in graph.nodes:
+        cache = node.cache
+        if cache is None or not hasattr(cache, "serve_from_store"):
+            continue                     # only store-complete families
+        manifest = getattr(cache, "manifest", None)
+        if manifest is None or not getattr(manifest, "entry_count", 0):
+            continue                     # cold store: nothing to defer to
+        key_cols = set(getattr(cache, "key_cols", ()) or ())
+        chain: List[IRNode] = []
+        cur = node.inputs[0]
+        while cur.kind == "stage" and cur.augment_only \
+                and cur.cache is None and cur.id not in terminal_ids \
+                and len(consumers.get(cur.id, ())) == 1 \
+                and not (key_cols & set(
+                    getattr(cur.stage, "value_columns", ()) or ())):
+            # the last guard: an augment-only stage that *produces* one
+            # of the cache's key columns (a query/text attacher) cannot
+            # be deferred — the probe frame would lack (or mis-value)
+            # that key.  serve_from_store additionally treats a missing
+            # key column as a miss, so undeclared producers stay safe.
+            chain.append(cur)
+            cur = cur.inputs[0]
+        if not chain:
+            continue
+        node.probe_input = cur
+        node.inline_chain = list(reversed(chain))   # execution order
+        for ch in chain:
+            ch.inlined = True
+            _touch(ch, "cache-prune")
+        _touch(node, "cache-prune")
+        stats.nodes_marked_prunable += len(chain)
+
+
+# ---------------------------------------------------------------------------
 # operand-order — expensive subtree first + critical-path priorities
 # ---------------------------------------------------------------------------
 
@@ -338,3 +392,118 @@ def _pass_operand_order(graph: PlanGraph, stats: PassStats) -> None:
             (c.sched_priority for c in consumers.get(node.id, ())),
             default=0.0)
         node.sched_priority = (node.cost_est_s or 0.0) + downstream
+
+
+# ---------------------------------------------------------------------------
+# cache-place — skip cheap memos, memory-front hot expensive ones
+# ---------------------------------------------------------------------------
+
+def _pass_cache_place(graph: PlanGraph, stats: PassStats) -> None:
+    cost = graph.cost
+    if cost is None or cost.round_trip_s is None:
+        return                           # no caches planned: no-op
+    rt = cost.round_trip_s
+    for node in graph.nodes:
+        if node.kind != "stage":
+            continue
+        est, src = cost.estimate(node)
+        node.cost_est_s, node.cost_src = est, src
+        if src == "default":
+            continue                     # weak evidence: never lose a cache
+        # the alternative to recomputing is the node's cache path.  Its
+        # cheapest defensible figure: the microbenchmarked per-entry
+        # round trip, tightened by the measured per-query cache-path
+        # cost when one exists (min, never max — a cold run's figure is
+        # write-heavy and would overstate the steady-state read path,
+        # flushing caches that a warm run would have justified)
+        cache_s = cost.model.measured_cache_cost(cost.fps.get(node.id))
+        alt = rt if cache_s is None else min(rt, cache_s)
+        if est * 2.0 < alt:
+            # recompute is comfortably cheaper than even the cheapest
+            # view of the cache path: a memo here only adds latency and
+            # disk.  By construction this cannot fire when the cache
+            # path is the cheaper side (alt < est implies est*2 >= alt).
+            node.cache_skip = True
+            _touch(node, "cache-place")
+            stats.caches_skipped += 1
+        elif est > 20.0 * rt:
+            # hot AND expensive: even the per-entry round trip is worth
+            # shaving — front the same persistent store with a memory
+            # tier (storage identity is unchanged, dirs stay warm)
+            promoted = _promote_selector(cost.backend)
+            if promoted is not None:
+                node.backend_override = promoted
+                _touch(node, "cache-place")
+                stats.caches_promoted += 1
+
+
+def _promote_selector(backend: Optional[str]) -> Optional[str]:
+    """``tiered:<disk>`` over a bare persistent disk backend — hot
+    expensive nodes get a memory front.  Storage identity is unchanged
+    (``caching.backends.storage_identity`` resolves through tiers), so
+    warm dirs written by the bare backend stay valid."""
+    if not backend:
+        return None
+    from ..caching.backends import BACKENDS, split_combinator
+    if split_combinator(backend) is not None:
+        return None                      # already a combinator selector
+    cls = BACKENDS.get(backend)
+    if cls is None or not cls.persistent:
+        return None                      # memory-only: nothing to front
+    return f"tiered:{backend}"
+
+
+# ---------------------------------------------------------------------------
+# autotune — executor / serving knobs from measured history
+# ---------------------------------------------------------------------------
+
+def _pass_autotune(graph: PlanGraph, stats: PassStats) -> None:
+    cost = graph.cost
+    if cost is None:
+        return
+    tuning: Dict[str, Dict[str, Any]] = {}
+    history = [r for r in (cost.history or []) if isinstance(r, dict)]
+
+    # -- n_shards: prefer direct evidence (the fastest measured
+    #    per-query configuration across prior runs); otherwise estimate
+    #    from measured per-node costs.
+    by_shards: Dict[int, List[float]] = {}
+    for r in history:
+        nq = int(r.get("n_queries") or 0)
+        wall = r.get("wall_time_s")
+        if nq > 0 and isinstance(wall, (int, float)) and wall > 0:
+            ns = int(r.get("n_shards") or 1)
+            by_shards.setdefault(ns, []).append(float(wall) / nq)
+    if len(by_shards) > 1:
+        best = min(by_shards, key=lambda ns: min(by_shards[ns]))
+        tuning["n_shards"] = {"value": best, "source": "measured-history"}
+    else:
+        stage_nodes = [n for n in graph.nodes if n.kind == "stage"]
+        estimates = [cost.estimate(n) for n in stage_nodes]
+        if stage_nodes and all(n.shardable for n in stage_nodes) \
+                and any(src == "measured" for _, src in estimates) \
+                and sum(est for est, _ in estimates) > 2e-3:
+            want = min(8, max(2, os.cpu_count() or 4))
+            tuning["n_shards"] = {"value": want, "source": "cost-model"}
+
+    # -- micro-batch knobs from the latest run that carried online
+    #    (streaming-executor) stats
+    online = next((r["online"] for r in reversed(history)
+                   if isinstance(r.get("online"), dict)), None)
+    if online:
+        occ = float(online.get("batch_occupancy") or 0.0)
+        prev_batch = int(online.get("max_batch") or 16)
+        if occ >= 0.9:
+            batch = min(256, prev_batch * 2)     # saturated: give headroom
+        elif 0 < occ < 0.25:
+            batch = max(4, prev_batch // 2)      # mostly empty: shrink
+        else:
+            batch = prev_batch
+        tuning["max_batch"] = {"value": batch, "source": "batch-occupancy"}
+        wait = float(online.get("max_wait_ms") or 2.0)
+        if occ < 0.25 and float(online.get("queue_depth_p99") or 0.0) < 1.0:
+            wait = max(0.5, wait / 2.0)          # idle queue: cut latency
+        tuning["max_wait_ms"] = {"value": wait, "source": "queue-depth"}
+
+    graph.tuning = tuning
+    stats.knobs_tuned = len(tuning)

@@ -127,3 +127,17 @@ def fp_classes(fps):
     for nid, fp in fps.items():
         out.setdefault(fp, set()).add(nid)
     return sorted(sorted(v) for v in out.values())
+
+
+def pin_round_trip(monkeypatch, seconds=1e-7):
+    """Give both packages' ``cache-place`` one store round trip.  The
+    measured one varies with the machine's load, and a stage as cheap
+    as a ``TextLoader`` (a few µs a query) could then keep its cache in
+    one package and lose it in the other.  The default, 0.1 µs, is
+    below every stage's recompute, so ``cache-place`` keeps every
+    cache in both."""
+    import repro.caching.backends as jbackends
+    import repro_torch.caching.backends as tbackends
+    for mod in (jbackends, tbackends):
+        monkeypatch.setattr(mod, "measure_round_trip",
+                            lambda *a, **kw: seconds)

@@ -14,6 +14,7 @@ import repro_torch.core as tcore
 import repro_torch.ir as tir
 import repro_torch.models.cross_encoder as tce
 from repro_torch.caching.provenance import set_digest_device
+from _torch_parity import pin_round_trip
 
 torch.set_num_threads(1)
 set_digest_device("cpu")
@@ -68,12 +69,12 @@ def both():
                            names=NAMES, baseline=0)
     counts = ((jmono.invocations, jduo.invocations),
               (tmono.invocations, tduo.invocations))
-    return ref, got, counts, tsys, tc
+    return ref, got, counts, tsys, tc, jsys, jc
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_means_and_per_query_equal_reference(both, name):
-    ref, got, _, _, _ = both
+    ref, got, _, _, _, _, _ = both
     for m in MEASURES:
         assert got.means[name][m] == pytest.approx(ref.means[name][m],
                                                    abs=1e-6)
@@ -83,7 +84,7 @@ def test_means_and_per_query_equal_reference(both, name):
 
 
 def test_pair_counts_and_significance_equal_reference(both):
-    ref, got, (jcounts, tcounts), _, _ = both
+    ref, got, (jcounts, tcounts), _, _, _, _ = both
     assert jcounts == tcounts
     for n in NAMES[1:]:
         for m in MEASURES:
@@ -93,23 +94,46 @@ def test_pair_counts_and_significance_equal_reference(both):
                 ref.corrected_pvalues[n][m], abs=1e-9)
 
 
-def test_precompute_prefix_raises_for_several_systems(both):
+def test_precompute_prefix_raises_for_several_systems(both, tmp_path,
+                                                     monkeypatch):
     """Prefix precomputation over several systems runs through the plan
-    compiler with the unshared results; only planner-inserted caches
-    (``cache_dir=``) still raise."""
-    _, got, _, tsys, tc = both
+    compiler with the unshared results, and with planner-inserted caches
+    (``cache_dir=``, once a refusal: the name is kept) cold then hot it
+    gives the reference's means and cache counts; the hot run misses
+    nothing."""
+    _, got, _, tsys, tc, jsys, jc = both
     res = tcore.Experiment(tsys[:2], tc.get_topics(), tc.get_qrels(),
                            MEASURES, names=NAMES[:2], precompute_prefix=True)
     assert res.precompute.nodes_executed < res.precompute.nodes_total
     for n in NAMES[:2]:
         assert res.means[n] == pytest.approx(got.means[n], abs=1e-12)
-    with pytest.raises(NotImplementedError, match="plan-inserted"):
-        tcore.Experiment(tsys, tc.get_topics(), tc.get_qrels(), MEASURES,
-                         precompute_prefix=True, cache_dir="unused")
+    pin_round_trip(monkeypatch)
+    runs = {}
+    for name, core, systems, corpus in (("port", tcore, tsys, tc),
+                                        ("ref", jcore, jsys, jc)):
+        runs[name] = []
+        for _ in ("cold", "hot"):
+            r = core.Experiment(systems[:2], corpus.get_topics(),
+                                corpus.get_qrels(), MEASURES,
+                                names=NAMES[:2], precompute_prefix=True,
+                                precompute_mode="plan",
+                                cache_dir=str(tmp_path / name))
+            runs[name].append((r.means, r.precompute.cache_hits,
+                               r.precompute.cache_misses,
+                               r.precompute.nodes_executed))
+    for (tm, *tcounts), (jm, *jcounts) in zip(runs["port"], runs["ref"]):
+        assert tcounts == jcounts
+        for n in NAMES[:2]:
+            for m in MEASURES:
+                assert tm[n][m] == pytest.approx(jm[n][m], abs=1e-6)
+                assert tm[n][m] == pytest.approx(got.means[n][m], abs=1e-12)
+    (_, cold_hits, cold_misses, _), (_, hot_hits, hot_misses, _) = \
+        runs["port"]
+    assert cold_hits == 0 and hot_misses == 0 and hot_hits == cold_misses
 
 
 def test_batch_size_and_single_system_precompute(both):
-    _, got, _, tsys, tc = both
+    _, got, _, tsys, tc, _, _ = both
     res = tcore.Experiment(tsys[:1], tc.get_topics(), tc.get_qrels(),
                            MEASURES, names=NAMES[:1], precompute_prefix=True,
                            batch_size=16)

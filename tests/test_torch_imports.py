@@ -51,7 +51,10 @@ def test_module_list_covers_the_slice():
                  "core.plan", "caching.provenance", "caching.auto",
                  "caching.backends", "caching.economics",
                  "caching.codecs", "caching.base", "caching.kv",
-                 "caching.scorer", "kernels.cachekey_hash.kernel",
+                 "caching.scorer", "caching.tiered", "caching.retriever",
+                 "caching.dense", "caching.indexer", "caching.lazy",
+                 "caching.artifact", "core.compile_opt",
+                 "kernels.cachekey_hash.kernel",
                  "kernels.cachekey_hash.ops", "kernels.cachekey_hash.ref",
                  "kernels.bm25_block.kernel", "kernels.bm25_block.ops",
                  "kernels.bm25_block.ref", "kernels.flash_attention.kernel",

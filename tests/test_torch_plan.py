@@ -17,7 +17,7 @@ import repro_torch.ir as tir
 import repro_torch.models.cross_encoder as tce
 from repro_torch.caching.provenance import set_digest_device
 from repro_torch.core.rewrite import OPTIMIZER_PASSES, resolve_passes
-from _torch_parity import frames_equal, pipeline_sets, toy
+from _torch_parity import frames_equal, pin_round_trip, pipeline_sets, toy
 
 torch.set_num_threads(1)
 set_digest_device("cpu")
@@ -176,25 +176,49 @@ def test_experiment_modes_equal_reference():
                          precompute_mode="bogus")
 
 
-def test_planner_inserted_caches_refuse_with_a_reason(tmp_path):
-    t = toy(tcore)
-    pipes = pipeline_sets(t)["ablation"]
-    for kw in ({"cache_dir": str(tmp_path)}, {"cache_backend": "memory"},
-               {"memo_factory": lambda stage, path: None}):
-        with pytest.raises(NotImplementedError, match="plan-inserted"):
-            tcore.ExecutionPlan(pipes, **kw)
+def test_planner_inserted_caches_refuse_with_a_reason(tmp_path,
+                                                      monkeypatch):
+    """Planner-inserted caches (``cache_dir=``, ``cache_backend=``,
+    ``memo_factory=``), the cache passes and ``Experiment(cache_dir=)``
+    work in the port and agree with the reference; a cache pass asked
+    for without inserted caches still runs no pass, as the reference's
+    does.  (Once a refusal; the name is kept.)"""
+    from repro.core.rewrite import run_pass as j_run_pass
     from repro_torch.core.rewrite import run_pass
-    graph = tcore.lower(pipes)
-    for name in ("cache-place", "cache-prune", "autotune"):
-        with pytest.raises(NotImplementedError, match="plan-inserted"):
-            run_pass(graph, name)
-        # without planner-inserted caches the plan skips them, as the
-        # reference does
-        assert tcore.ExecutionPlan(pipes, optimize=[name]).pass_stats == []
-    with pytest.raises(NotImplementedError, match="plan-inserted"):
-        tcore.Experiment(pipes, t.queries(), tcore.ColFrame(
-            {"qid": ["q1"], "docno": ["A_d0"], "label": [1]}), ["MAP"],
-            precompute_prefix=True, cache_dir=str(tmp_path))
+    qrels = {"qid": ["q1"], "docno": ["A_d0"], "label": [1]}
+    pin_round_trip(monkeypatch)
+    got = {}
+    for name, core, rp in (("port", tcore, run_pass),
+                           ("ref", jcore, j_run_pass)):
+        t = toy(core)
+        pipes = pipeline_sets(t)["ablation"]
+        seen = []
+        rows = []
+        for kw in ({"cache_dir": str(tmp_path / name)},
+                   {"cache_backend": "memory"},
+                   {"memo_factory": lambda stage, path:
+                    seen.append(repr(stage))}):
+            with core.ExecutionPlan(pipes, **kw) as plan:
+                outs, st = plan.run(t.queries())
+                _, st2 = plan.run(t.queries())
+            rows.append((st.cache_hits, st.cache_misses, st2.cache_hits,
+                         st2.cache_misses, st.nodes_executed,
+                         [type(n.cache).__name__ for n in plan.graph.nodes]))
+        graph = core.lower(pipes)
+        for p in ("cache-place", "cache-prune", "autotune"):
+            stats = rp(graph, p)          # no caches, no cost context
+            rows.append((p, stats.nodes_marked_prunable,
+                         stats.caches_skipped, stats.knobs_tuned))
+            assert core.ExecutionPlan(pipes, optimize=[p]).pass_stats == []
+        res = core.Experiment(pipes, t.queries(), core.ColFrame(qrels),
+                              ["MAP"], precompute_prefix=True,
+                              precompute_mode="plan",
+                              cache_dir=str(tmp_path / f"exp-{name}"))
+        rows.append((res.means, res.precompute.cache_misses))
+        got[name] = (rows, seen)
+    assert got["port"] == got["ref"]
+    assert got["port"][0][0][:4] == (0, 3, 3, 0)
+    assert len(got["port"][1]) == 3
 
 
 def test_cost_model_and_analytic_priors_equal_reference():

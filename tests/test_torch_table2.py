@@ -2,10 +2,14 @@
 packages: ``[bm25 % k >> text >> mono % 10 >> duo for k in (20, 50,
 100, 200)]`` in its four settings — (1) no sharing, (2) prefix
 precomputation, (3) + a cold ``ScorerCache`` around Mono, (4) + the same
-cache hot — run by the reference and by the port on the CPU from
-bridged weights.  Means and per-query values agree within 1e-6, and the
-work counts (BM25 queries, Mono pairs, cache hits and misses) are
-equal."""
+cache hot — and (3′) and (4′), the same cold then hot through the
+planner-inserted caches of ``Experiment(cache_dir=...)``, run by the
+reference and by the port on the CPU from bridged weights.  Means and
+per-query values agree within 1e-6, and the work counts (BM25 queries,
+Mono and Duo pairs, cache hits and misses, plan nodes executed, node
+cache directories) are equal."""
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ import repro_torch.core as tcore
 import repro_torch.ir as tir
 import repro_torch.models.cross_encoder as tce
 from repro_torch.caching.provenance import set_digest_device
+from _torch_parity import pin_round_trip
 from repro_torch.kernels.cachekey_hash import cachekey_hash
 
 torch.set_num_threads(1)
@@ -32,10 +37,12 @@ SMALL = dict(n_layers=2, d_model=32, n_heads=2, d_ff=64, vocab_size=2048,
 CUTS = (20, 50, 100, 200)
 MEASURES = ["nDCG@10", "MAP"]
 NAMES = [f"k={k}" for k in CUTS]
-SETTINGS = [(False, None), (True, None), (True, "cold"), (True, "hot")]
+# (3′) and (4′) are settings 5 and 6
+SETTINGS = [(False, None), (True, None), (True, "cold"), (True, "hot"),
+            (True, "dir-cold"), (True, "dir-hot")]
 
 
-def _table2(pkg, corpus, cache_dir, params=None):
+def _table2(pkg, corpus, cache_dir, plan_dir, params=None):
     """The four settings; returns per-setting (result, counts)."""
     core, caching, ir, ce = pkg
     bridged = params is not None
@@ -59,15 +66,21 @@ def _table2(pkg, corpus, cache_dir, params=None):
                                            if bridged else {}))
         duo = ce.DuoScorer(cfg, max_docs=10, **kw,
                            **({"params": params[1]} if bridged else {}))
-        cache = None if cached is None else \
+        cache = None if cached in (None, "dir-cold", "dir-hot") else \
             caching.ScorerCache(cache_dir, mono, backend="sqlite")
         stage = mono if cache is None else cache
         systems = [bm25 % k >> tl >> stage % 10 >> duo for k in CUTS]
+        planned = {} if cache is not None or cached is None else {
+            "precompute_mode": "plan", "cache_dir": plan_dir}
         res = core.Experiment(systems, topics, qrels, MEASURES,
-                              precompute_prefix=pre, names=NAMES)
+                              precompute_prefix=pre, names=NAMES, **planned)
         stats = (cache.stats.hits, cache.stats.misses) if cache else None
         if cache is not None:
             cache.close()
+        if planned:
+            st = res.precompute
+            stats = (st.cache_hits, st.cache_misses, st.nodes_executed,
+                     sorted(os.listdir(plan_dir)))
         rows.append((res, {"bm25_queries": seen[0],
                            "mono_pairs": mono.invocations,
                            "duo_pairs": duo.invocations,
@@ -80,19 +93,26 @@ def _table2(pkg, corpus, cache_dir, params=None):
 
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        pin_round_trip(mp)
+        return _both(tmp_path_factory)
+
+
+def _both(tmp_path_factory):
     jc, tc = jir.msmarco_like(2, 0.02), tir.msmarco_like(2, 0.02)
-    ref, params = _table2((jcore, jcache, jir, jce), jc,
-                          str(tmp_path_factory.mktemp("ref") / "mono"))
+    rd, pd = tmp_path_factory.mktemp("ref"), tmp_path_factory.mktemp("port")
+    ref, params = _table2((jcore, jcache, jir, jce), jc, str(rd / "mono"),
+                          str(rd / "plan"))
     before = cachekey_hash.launches
-    got, _ = _table2((tcore, tcache, tir, tce), tc,
-                     str(tmp_path_factory.mktemp("port") / "mono"), params)
+    got, _ = _table2((tcore, tcache, tir, tce), tc, str(pd / "mono"),
+                     str(pd / "plan"), params)
     # on the CPU the digest runs the kernel's plain version, never the
     # kernel: the launch counter does not move
     assert cachekey_hash.launches == before
     return ref, got
 
 
-@pytest.mark.parametrize("setting", [1, 2, 3, 4])
+@pytest.mark.parametrize("setting", [1, 2, 3, 4, 5, 6])
 def test_means_and_per_query_equal_reference(both, setting):
     ref, got = both
     (rres, _), (tres, _) = ref[setting - 1], got[setting - 1]
@@ -107,7 +127,7 @@ def test_means_and_per_query_equal_reference(both, setting):
                                                                   abs=1e-6)
 
 
-@pytest.mark.parametrize("setting", [1, 2, 3, 4])
+@pytest.mark.parametrize("setting", [1, 2, 3, 4, 5, 6])
 def test_work_counts_equal_reference(both, setting):
     ref, got = both
     (rres, rc), (tres, tc) = ref[setting - 1], got[setting - 1]
@@ -126,6 +146,14 @@ def test_the_papers_claims_hold_in_the_port(both):
     assert counts[3]["mono_pairs"] == 0
     assert counts[3]["cache"][1] == 0
     assert counts[2]["mono_pairs"] <= counts[1]["mono_pairs"]
+    # through cache_dir the hot run skips BM25 and Mono entirely; Duo is
+    # cacheable=False (paper §5), so it scores as many pairs as cold
+    cold, hot = counts[4], counts[5]
+    assert hot["bm25_queries"] == hot["mono_pairs"] == 0
+    assert cold["mono_pairs"] == counts[1]["mono_pairs"]
+    assert hot["duo_pairs"] == cold["duo_pairs"] > 0
+    assert hot["cache"][1] == 0 and hot["cache"][0] == cold["cache"][1]
+    assert hot["cache"][3] == cold["cache"][3]     # the same directories
     base = got[0][0].means
     for res, _ in got[1:]:
         for n in NAMES:
