@@ -58,7 +58,21 @@ Phases, one output line or more each, the JSON result last:
    node; then the main path's six systems the same way, whose dense
    retrievers launch ``dense_topk`` cold and are served by their
    ``RetrieverCache`` hot; means equal to the uncached runs';
-7. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+7. serve: the ``hybrid`` scenario (``(bm25 % 10 | dense % 10) >> text
+   >> mono``) over ``msmarco_like(1, scale=1.0)``, each leg one
+   ``repro_torch.serve.drive_closed_loop`` of 400 closed-loop requests
+   from 4 clients: (a) without a cache, then ``search()`` of every
+   topic against an offline ``ExecutionPlan.run``; (b) cold over a fresh
+   sqlite directory; (c) warm, a new service over it: no misses, hits
+   served by prefetch, no ``dense_topk`` launch; (d) the same directory
+   as ``mmap:sqlite``: no misses; (e) ``warm_scenario`` into a fresh
+   directory, then a service over it: no misses; then the ``dense``
+   scenario without a cache.  Every leg launches ``cachekey_hash`` only
+   at service start (as many times as its plan's compile alone) and
+   the uncached legs ``dense_topk`` once per micro-batch; then
+   ``dense_topk`` at the serving shape against its plain version, timed
+   beside ``torch.topk(q @ c.T)``;
+8. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
@@ -165,6 +179,19 @@ TOL_BAG = {"float32": 1e-5, "bfloat16": 6e-2}
 TOL_BM25 = 1e-4
 # what the name of the kernel of ``uint8_tensor.bitwise_not_()`` holds
 FLUSH_KERNEL = "bitwise_not"
+# the serve phase: the registry's scenario at the generator's full v1
+# size (9,000 docs, 43 queries), as ServeConfig takes it, and the closed
+# loop each leg runs
+SERVE = dict(pipeline="hybrid", scale=1.0, cutoff=10, num_results=100,
+             max_batch=16, max_wait_ms=2.0, exec_workers=4)
+SERVE_REQUESTS, SERVE_CLIENTS = 400, 4
+# served against offline for the encoder scenarios: equal docnos per
+# qid and scores within this relative tolerance (fp32, TF32 off); a
+# served micro-batch gives the encoders other batch shapes than the
+# offline run, so cuBLAS may pick other kernels.  The docnos may differ
+# only where a retriever's k-th and (k+1)-th scores lie within it.  The
+# bm25 scenario is exact
+SERVED_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1191,6 +1218,7 @@ def run_table2_planner(torch, card: str, mp, table2_base, main_res) -> dict:
                 "mono_pairs": mp.mono.invocations - mono0,
                 "duo_pairs": mp.duo.invocations - duo0,
                 "cache_hits": st.cache_hits, "cache_misses": st.cache_misses,
+                "cache_prefetched": st.cache_prefetched,
                 "nodes_executed": st.nodes_executed,
                 "nodes_planned": st.nodes_planned,
                 "cachekey_hash_launches": cachekey_hash.launches,
@@ -1221,6 +1249,7 @@ def run_table2_planner(torch, card: str, mp, table2_base, main_res) -> dict:
                 "dense_topk_launches": dense_topk.launches,
                 "cachekey_hash_launches": cachekey_hash.launches,
                 "cache_hits": st.cache_hits, "cache_misses": st.cache_misses,
+                "cache_prefetched": st.cache_prefetched,
                 "nodes_executed": st.nodes_executed,
                 "node_dirs": len([d for d in (root / "dense").iterdir()
                                   if d.name != "plans"])})
@@ -1258,6 +1287,216 @@ def run_table2_planner(torch, card: str, mp, table2_base, main_res) -> dict:
     return {"cachekey_hash": sum(r["cachekey_hash_launches"]
                                  for r in rows + dense_rows),
             "dense_topk": sum(r["dense_topk_launches"] for r in dense_rows)}
+
+
+def find_stages(pipeline, cls) -> list:
+    """The ``cls`` instances inside a pipeline expression."""
+    from repro_torch.core import Transformer
+    out, stack, seen = [], [pipeline], set()
+    while stack:
+        x = stack.pop()
+        if id(x) in seen:
+            continue
+        seen.add(id(x))
+        if isinstance(x, cls):
+            out.append(x)
+        if isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif isinstance(x, Transformer):
+            stack.extend(vars(x).values())
+    return out
+
+
+def served_vs_offline(served, offline, retrievers, k: int) -> tuple:
+    """(largest relative score difference, qids whose docnos differ at a
+    near tie): raises unless every qid has the offline docnos and scores
+    within ``SERVED_RTOL``, or its docnos differ only where one of
+    ``retrievers`` scores its k-th and (k+1)-th docs within it."""
+    def by_qid(frame):
+        return {str(key[0]): frame.take(rows)
+                for key, rows in frame.group_indices(["qid"]).items()}
+    got, want = by_qid(served), by_qid(offline)
+    if set(got) != set(want):
+        raise AssertionError("serve: served and offline qids differ")
+    worst, ties = 0.0, 0
+    for qid, w in want.items():
+        g = got[qid]
+        gs = dict(zip(g["docno"].tolist(), g["score"].tolist()))
+        ws = dict(zip(w["docno"].tolist(), w["score"].tolist()))
+        if set(gs) != set(ws):
+            query = str(w["query"].tolist()[0])
+            if not any(near_tie(r, qid, query, k) for r in retrievers):
+                raise AssertionError(f"serve: qid {qid} served other docnos "
+                                     f"than offline, not at a near tie")
+            ties += 1
+        for d in set(gs) & set(ws):
+            rel = abs(gs[d] - ws[d]) / max(abs(ws[d]), 1e-30)
+            if rel > SERVED_RTOL:
+                raise AssertionError(f"serve: qid {qid} doc {d} scored "
+                                     f"{gs[d]} served, {ws[d]} offline")
+            worst = max(worst, rel)
+    return worst, ties
+
+
+def near_tie(retriever, qid: str, query: str, k: int) -> bool:
+    """Whether ``retriever`` scores its k-th and (k+1)-th docs for this
+    query within ``SERVED_RTOL`` of each other."""
+    from repro_torch.core import ColFrame
+    out = retriever.transform(ColFrame({"qid": [qid], "query": [query]}))
+    s = sorted(out["score"].tolist(), reverse=True)
+    return len(s) > k and abs(s[k - 1] - s[k]) <= SERVED_RTOL * abs(s[k - 1])
+
+
+def serve_leg(torch, card: str, label: str, cfg, scenario) -> dict:
+    """One leg of the serve phase: ``drive_closed_loop(cfg,
+    scenario=scenario)``, the entry point of ``repro_torch.cli serve``
+    and the launcher, with the kernels' counts set to 0 just before and
+    read just after.  Then the service's plan is compiled alone, with
+    the config's cache knobs, and its ``cachekey_hash`` launches are the
+    service start's; the leg must have launched as many, so none while
+    serving.  Hits and misses are the record's; prefetched is the run
+    that the service recorded in its plan manifest on close (none
+    without a ``cache_dir``).  Prints the leg's line."""
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.kernels.cachekey_hash import cachekey_hash
+    from repro_torch.kernels.dense_topk import dense_topk
+    from repro_torch.serve import drive_closed_loop
+    at = time.time()
+    cachekey_hash.launches = dense_topk.launches = 0
+    rec = drive_closed_loop(cfg, scenario=scenario,
+                            requests=SERVE_REQUESTS, clients=SERVE_CLIENTS)
+    torch.cuda.synchronize()
+    topk_launches, hash_launches = dense_topk.launches, \
+        cachekey_hash.launches
+    prefetched = 0
+    if cfg.cache_dir is not None:
+        runs = [r for f in sorted(Path(cfg.cache_dir, "plans").glob("*.json"))
+                for r in json.loads(f.read_text())["runs"] if r["at"] >= at]
+        if len(runs) != 1 or runs[0]["cache_hits"] != \
+                rec["online"]["cache_hits"]:
+            raise AssertionError(f"serve: {label}: the plan manifests hold "
+                                 f"{len(runs)} runs of this leg, not one "
+                                 f"with the record's hits: {runs}")
+        prefetched = runs[0]["cache_prefetched"]
+    cachekey_hash.launches = 0
+    plan = ExecutionPlan([scenario.pipeline], cache_dir=cfg.cache_dir,
+                         cache_backend=cfg.backend, on_stale=cfg.on_stale,
+                         optimize=cfg.optimize, prefetch=cfg.prefetch)
+    plan.close()
+    torch.cuda.synchronize()
+    row = {"leg": label, "pipeline": cfg.pipeline, "backend": cfg.backend,
+           **{k: rec[k] for k in ("requests", "batches", "wall_s",
+                                  "throughput_rps", "p50_ms", "p99_ms")},
+           "occupancy": rec["online"]["batch_occupancy"],
+           "cache_hits": rec["online"]["cache_hits"],
+           "cache_misses": rec["online"]["cache_misses"],
+           "cache_prefetched": prefetched,
+           "dense_topk_launches": topk_launches,
+           "cachekey_hash_launches": hash_launches,
+           "cachekey_hash_launches_at_start": cachekey_hash.launches}
+    log(f"serve: {json.dumps(row)}; {card}")
+    log(f"serve: {label}, per plan node (executions, p50 ms, p99 ms): "
+        + json.dumps({node[:40]: (d["executions"], d["p50_ms"], d["p99_ms"])
+                      for node, d in rec["online"]["nodes"].items()}))
+    return row
+
+
+def run_serve(torch, card: str) -> dict:
+    """The serve phase (module docstring, item 7).  Returns the launches
+    of ``dense_topk`` and ``cachekey_hash`` it made."""
+    import dataclasses
+
+    from repro_torch.caching import warm_scenario
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.ir import BM25Retriever, DenseRetriever
+    from repro_torch.kernels.dense_topk.kernel import _sms, plan
+    from repro_torch.serve import ServeConfig, build_service
+
+    base = ServeConfig(**SERVE)
+    t = time.perf_counter()
+    scenario = base.build_scenario()
+    log(f"serve: {scenario.name} scenario, {len(scenario.topics)} topics, "
+        f"built in {time.perf_counter() - t:.1f} s: {scenario.description}")
+    retrievers = find_stages(scenario.pipeline, (DenseRetriever,
+                                                 BM25Retriever))
+    dense = find_stages(scenario.pipeline, DenseRetriever)[0]
+    n_docs, width = dense.index.matrix.shape
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="serve-", dir=str(build)))
+    legs = []
+    try:
+        legs.append(serve_leg(torch, card, "a: no cache", base, scenario))
+        svc = build_service(base, scenario=scenario)
+        try:
+            served = svc.search(scenario.topics)
+        finally:
+            svc.close()
+        offline = ExecutionPlan([scenario.pipeline]).run(
+            scenario.topics)[0][0]
+        worst, ties = served_vs_offline(served, offline, retrievers,
+                                        SERVE["cutoff"])
+        log(f"serve: search() of all {len(scenario.topics)} topics equals "
+            f"one offline ExecutionPlan.run: docnos equal on every qid but "
+            f"{ties} near ties, scores within {worst:.3g} relative "
+            f"(tolerance {SERVED_RTOL})")
+        cold = dataclasses.replace(base, cache_dir=str(root / "b"),
+                                   backend="sqlite")
+        legs.append(serve_leg(torch, card, "b: cold", cold, scenario))
+        legs.append(serve_leg(torch, card, "c: warm", cold, scenario))
+        legs.append(serve_leg(
+            torch, card, "d: warm, mmap:sqlite",
+            dataclasses.replace(cold, backend="mmap:sqlite"), scenario))
+        warmed = dataclasses.replace(cold, cache_dir=str(root / "e"))
+        t = time.perf_counter()
+        report = warm_scenario(scenario, warmed.cache_dir, config=warmed)
+        log(f"serve: warm_scenario {json.dumps(report)} in "
+            f"{time.perf_counter() - t:.1f} s")
+        legs.append(serve_leg(torch, card, "e: warmed", warmed, scenario))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the dense scenario, no cache
+    dense_cfg = dataclasses.replace(base, pipeline="dense")
+    legs.append(serve_leg(torch, card, "dense: no cache", dense_cfg,
+                          dense_cfg.build_scenario()))
+
+    a, b, c, d, e, f = legs
+    if any(r["cachekey_hash_launches"] != r["cachekey_hash_launches_at_start"]
+           or r["cachekey_hash_launches_at_start"] < 1 for r in legs):
+        raise AssertionError("serve: a leg launched cachekey_hash other "
+                             "than at service start, or never")
+    if b["cache_misses"] < 1 or b["dense_topk_launches"] < 1:
+        raise AssertionError("serve: the cold leg missed nothing or never "
+                             "launched dense_topk")
+    if c["cache_misses"] != 0 or not 0 < c["cache_prefetched"] <= \
+            c["cache_hits"] or c["dense_topk_launches"] != 0:
+        raise AssertionError(f"serve: the warm leg must miss nothing, serve "
+                             f"0 < prefetched <= hits and launch no "
+                             f"dense_topk: {c}")
+    if d["cache_misses"] != 0 or e["cache_misses"] != 0:
+        raise AssertionError("serve: the mmap:sqlite or the warmed leg "
+                             "missed")
+    # one dense_topk call per micro-batch, of as many launches as its
+    # plan takes at any Q up to max_batch (the corpus split, the merge)
+    per_call, = {plan(Q, n_docs, width, SERVE["cutoff"], sms=_sms(0)).launches
+                 for Q in range(1, SERVE["max_batch"] + 1)}
+    for r in (a, f):
+        if r["dense_topk_launches"] != per_call * r["batches"]:
+            raise AssertionError(f"serve: the {r['leg']} leg launched "
+                                 f"dense_topk {r['dense_topk_launches']} "
+                                 f"times in {r['batches']} micro-batches, "
+                                 f"not {per_call} a batch")
+
+    # dense_topk at the serving shape: Q 1 and 16 of the scenario's
+    # queries against its 9,000 x 32 corpus, k = cutoff
+    queries = scenario.topics["query"].tolist()
+    c_serve = dense.index.matrix
+    for Q in (1, SERVE["max_batch"]):
+        q = dense.index.encoder.encode_queries(queries[:Q])
+        time_topk(torch, card, "serving shape", q, c_serve, SERVE["cutoff"],
+                  2e-5)
+    return {"dense_topk": sum(r["dense_topk_launches"] for r in legs),
+            "cachekey_hash": sum(r["cachekey_hash_launches"] for r in legs)}
 
 
 def row_by_row_fingerprints(graph):
@@ -1378,6 +1617,12 @@ def main() -> int:
     log(f"table2_planner: in {time.perf_counter() - t:.1f} s, launches "
         f"{json.dumps(planner)}")
 
+    # -- 7. serving: the hybrid scenario cold, warm and warmed -------------
+    t = time.perf_counter()
+    served = run_serve(torch, card)
+    log(f"serve: in {time.perf_counter() - t:.1f} s, launches "
+        f"{json.dumps(served)}")
+
     # the hash kernel at the main path's largest digest batch
     n_main, L_main = t2["batch"]
     tok = torch.randint(-2**31, 2**31, (n_main, L_main),
@@ -1397,17 +1642,19 @@ def main() -> int:
         f"{hash_timed[(1, 64)][0]:.4f} ms, at (65536, 64): "
         f"{hash_timed[(65536, 64)][0]:.4f} ms; {card}")
 
-    # -- 7. result lines ----------------------------------------------------
+    # -- 8. result lines ----------------------------------------------------
     log(json.dumps({"kernels": [{
         "name": "dense_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/dense_topk/csrc/dense_topk.cu",
         "replaces": "src/repro/kernels/dense_topk/kernel.py:96",
-        "launches": launches + planner["dense_topk"], **topk_entry}, {
+        "launches": launches + planner["dense_topk"] + served["dense_topk"],
+        **topk_entry}, {
         "name": "cachekey_hash", "route": "cuda",
         "source": "src/repro_torch/kernels/cachekey_hash/csrc/"
                   "cachekey_hash.cu",
         "replaces": "src/repro/kernels/cachekey_hash/kernel.py:54",
-        "launches": t2["launches"] + planner["cachekey_hash"],
+        "launches": t2["launches"] + planner["cachekey_hash"]
+        + served["cachekey_hash"],
         "max_abs_err": 0, "ms": h_ms,
         "plain_ms": h_plain, "bound_ms": h_bound, "bound_by": h_by,
         "library_ms": None}, {

@@ -1,9 +1,8 @@
 # Explicit caching strategies (paper §4): counterpart of repro.caching
 # with the cache families, their backends and tiers, provenance
-# manifests, economics, codecs, the Artifact API and auto_cache.  Left
-# for later slices (ROADMAP Queue A): the mmap snapshot tier and the
-# async data plane (item 3), cache warming, which needs serving (item 4),
-# and the compile cache, whose counterpart is a CUDA-graph memo (item 5).
+# manifests, economics, codecs, the Artifact API, auto_cache, the async
+# data plane and cache warming.  Left for a later slice (ROADMAP Queue
+# A item 5): the compile cache, whose counterpart is a CUDA-graph memo.
 from .backends import (BACKENDS, CacheBackend, DbmBackend, FileLock,
                        MemoryLRUBackend, PickleDirBackend, SQLiteBackend,
                        atomic_write_bytes, backend_store_exists,
@@ -12,6 +11,7 @@ from .backends import (BACKENDS, CacheBackend, DbmBackend, FileLock,
                        select_backend, split_combinator, split_mmap,
                        split_tiered, storage_identity)
 from .tiered import TieredBackend
+from .mmap_tier import MmapTier
 from .provenance import (CacheManifest, ManifestError, ProvenanceError,
                          StaleCacheError, combine_fingerprints,
                          digest_bytes, set_digest_device,
@@ -21,6 +21,9 @@ from .economics import (AccessStats, CacheBudget, enforce_dir,
 from .base import CacheMissError, CacheStats, CacheTransformer
 from .codecs import (KV_CODEC, RETRIEVER_CODEC, KNOWN_CODECS, scalar_key,
                      vector_keys)
+from .dataplane import (StagingMap, WriteBehindWriter, io_pool,
+                        prefetch_default, write_behind_default)
+from .warming import warm_scenario
 from .kv import KeyValueCache
 from .scorer import ScorerCache
 from .dense import DenseScorerCache
@@ -40,18 +43,20 @@ for _cls in (KeyValueCache, ScorerCache, DenseScorerCache, RetrieverCache,
 
 __all__ = [
     "BACKENDS", "CacheBackend", "MemoryLRUBackend", "PickleDirBackend",
-    "DbmBackend", "SQLiteBackend", "TieredBackend", "FileLock",
+    "DbmBackend", "SQLiteBackend", "TieredBackend", "MmapTier", "FileLock",
     "atomic_write_bytes", "backend_store_exists", "measure_round_trip",
     "open_backend", "registered_selectors", "resolve_backend_name",
     "select_backend", "split_combinator", "split_mmap", "split_tiered",
     "storage_identity",
     "CacheManifest", "ManifestError", "ProvenanceError", "StaleCacheError",
     "combine_fingerprints", "digest_bytes", "set_digest_device",
-    "transformer_fingerprint",
+    "transformer_fingerprint", "warm_scenario",
     "AccessStats", "CacheBudget", "enforce_dir", "evict_entries",
     "CacheMissError", "CacheStats", "CacheTransformer",
     "KV_CODEC", "RETRIEVER_CODEC", "KNOWN_CODECS", "scalar_key",
     "vector_keys",
+    "StagingMap", "WriteBehindWriter", "io_pool", "prefetch_default",
+    "write_behind_default",
     "KeyValueCache", "ScorerCache", "DenseScorerCache", "RetrieverCache",
     "IndexerCache", "Lazy", "Artifact", "to_hub", "from_hub", "hub_dir",
     "BucketedRunner", "bucket_size", "pad_batch",

@@ -3,11 +3,9 @@
 Counterpart of ``repro.caching.backends``: the same store formats, so a
 directory written by either package opens in the other.  The
 combinator selectors ``"tiered[:<disk>]"`` and ``"mmap[:<disk>]"``
-validate and normalize as in the reference; ``"tiered"`` opens a
-:class:`~repro_torch.caching.tiered.TieredBackend`, while opening an
-``"mmap"`` selector raises ``NotImplementedError``: its snapshot tier
-comes with the port's tiers-and-data-plane slice (ROADMAP Queue A
-item 3).
+validate and normalize as in the reference, and open a
+:class:`~repro_torch.caching.tiered.TieredBackend` and a
+:class:`~repro_torch.caching.mmap_tier.MmapTier`.
 
 Before this module each cache family rolled its own persistence —
 ``KeyValueCache`` embedded SQLite, ``RetrieverCache`` embedded ``dbm``,
@@ -208,7 +206,7 @@ class CacheBackend:
     #: only and opts out)
     enumerable: bool = True
     #: whether moving this backend's reads onto the I/O pool can pay
-    #: (the reference's ``caching/dataplane.py``): disk stores say yes, while a
+    #: (see ``caching/dataplane.py``): disk stores say yes, while a
     #: memory-speed read path (the in-process LRU, the mmap snapshot
     #: tier) opts out — staging a dict lookup only adds bookkeeping
     prefetchable: bool = True
@@ -738,8 +736,9 @@ def resolve_backend_name(spec: Union[str, CacheBackend, None],
     Besides the registry names, the combinator selectors compose an
     accelerator tier over a named disk backend — ``"tiered[:<disk>]"``
     (:class:`~repro_torch.caching.tiered.TieredBackend`, a memory-LRU
-    front) and ``"mmap[:<disk>]"`` (the reference's ``MmapTier``, a
-    packed read-only snapshot shared across processes) — and normalize
+    front) and ``"mmap[:<disk>]"``
+    (:class:`~repro_torch.caching.mmap_tier.MmapTier`, a packed
+    read-only snapshot shared across processes) — and normalize
     to the explicit ``"<combinator>:<disk>"`` form (what manifests
     record).
 
@@ -791,10 +790,10 @@ def open_backend(spec: Union[str, CacheBackend, None], path: Optional[str],
                  default: str = "sqlite") -> CacheBackend:
     """Resolve a ``backend=`` argument: an instance passes through, a
     name is looked up in ``BACKENDS``, ``None`` means ``default``,
-    ``"tiered[:<disk>]"`` builds a ``TieredBackend`` over the named disk
-    backend, and ``"mmap[:<disk>]"`` raises ``NotImplementedError`` (not
-    ported yet).  Unknown selectors raise with the registered selectors
-    spelled out."""
+    ``"tiered[:<disk>]"`` builds a ``TieredBackend`` and
+    ``"mmap[:<disk>]"`` an ``MmapTier`` over the named disk backend.
+    Unknown selectors raise with the registered selectors spelled
+    out."""
     if isinstance(spec, CacheBackend):
         return spec
     name = resolve_backend_name(spec, default)
@@ -804,10 +803,8 @@ def open_backend(spec: Union[str, CacheBackend, None], path: Optional[str],
         if combinator == "tiered":
             from .tiered import TieredBackend   # deferred: imports us
             return TieredBackend(path, disk=disk)
-        raise NotImplementedError(
-            f"cache backend {name!r}: the mmap snapshot tier arrives with "
-            f"the tiers-and-data-plane slice of repro_torch (ROADMAP "
-            f"Queue A item 3)")
+        from .mmap_tier import MmapTier         # deferred: imports us
+        return MmapTier(path, disk=disk)
     return BACKENDS[name](path)
 
 

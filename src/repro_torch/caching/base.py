@@ -1,9 +1,7 @@
 """Shared machinery for explicit caches (paper §4).
 
-Counterpart of ``repro.caching.base`` on its synchronous path: reads
-and miss-path writes go straight to the backend.  The reference's
-asynchronous data plane (prefetch staging, write-behind) belongs to
-plan-inserted caches, which the port does not have yet.
+Counterpart of ``repro.caching.base``, with its asynchronous data plane
+(prefetch staging and write-behind puts, ``caching/dataplane.py``).
 
 Common behaviours across all cache families:
 
@@ -158,11 +156,21 @@ class CacheTransformer(Transformer):
                  *, verify_fraction: float = 0.0,
                  fingerprint: Optional[str] = None,
                  on_stale: str = "error",
-                 budget: Any = None):
+                 budget: Any = None,
+                 async_writes: Optional[bool] = None):
         if on_stale not in ON_STALE_POLICIES:
             raise ValueError(f"on_stale must be one of {ON_STALE_POLICIES}, "
                              f"got {on_stale!r}")
         self._transformer_raw = transformer
+        # write-behind is *opt-in* (the plan compiler passes True for
+        # planner-inserted caches): deferring puts keeps compute-once
+        # exact within a process but relaxes it across processes
+        # sharing a directory, and a bare family must preserve the
+        # strict cross-process contract its docstring promises
+        self._async_writes = bool(async_writes) if async_writes is not None \
+            else False
+        self._staging = None                  # StagingMap, see dataplane.py
+        self._writer = None                   # WriteBehindWriter or None
         self.codec: Optional[str] = None      # negotiated via the manifest
         self._budget = CacheBudget.coerce(budget)
         #: in-memory {backend key: [last_used_ts, hits]} deltas, merged
@@ -317,9 +325,12 @@ class CacheTransformer(Transformer):
                     pass
 
     def _update_manifest(self) -> None:
-        """Refresh last-use timestamp and entry count on disk."""
+        """Refresh last-use timestamp and entry count on disk.  A
+        manifest refresh is a write-behind flush point: the recorded
+        entry count must describe the *durable* store."""
         if self._manifest is None or self.readonly or self._temporary:
             return
+        self._drain_writes()
         try:
             n = len(self)                    # families define __len__
         except Exception:
@@ -382,6 +393,7 @@ class CacheTransformer(Transformer):
         if backend is None:
             raise NotImplementedError(
                 f"{type(self).__name__} does not support budget eviction")
+        self._drain_writes()                 # evict over the durable store
         self._flush_access()
         created = self._manifest.created_at \
             if self._manifest is not None else 0.0
@@ -419,27 +431,185 @@ class CacheTransformer(Transformer):
         hits, misses = self.pop_call_counts()
         return out, hits, misses
 
-    # -- store access: the reference's data plane on its synchronous path ---
+    # -- asynchronous data plane (see caching/dataplane.py) ------------------
+    # Families that own a backend call ``_init_dataplane()`` after
+    # opening it; everything here degrades to the synchronous path when
+    # they don't (``_staging``/``_writer`` stay None).
+
+    def _init_dataplane(self) -> None:
+        from .dataplane import StagingMap, WriteBehindWriter, \
+            write_behind_default
+        backend = getattr(self, "_backend", None)
+        if backend is None:                   # pragma: no cover - guard
+            return
+        self._staging = StagingMap()
+        if self._async_writes and write_behind_default() \
+                and not self.readonly:
+            # the writer drains under the backend's re-entrant lock
+            # (taken before its own flush lock) so background drains,
+            # lock-holding barriers and flush points order consistently
+            self._writer = WriteBehindWriter(backend.put_many,
+                                             lock=backend.lock)
+
+    @property
+    def prefetchable(self) -> bool:
+        """Whether prefetching this cache's backend can pay: the
+        backend must exist and not already be a memory-speed read path
+        (backends declare via ``prefetchable``; the in-memory LRU and
+        the mmap snapshot tier opt out — staging a dict/page-cache read
+        only adds bookkeeping)."""
+        backend = getattr(self, "_backend", None)
+        return backend is not None and self._staging is not None \
+            and bool(getattr(backend, "prefetchable", True))
+
+    def prefetch_columns(self) -> Optional[Tuple[str, ...]]:
+        """The input columns that fully determine this cache's keys, or
+        ``None`` when the family does not support key prefetch.
+        Executors use this to decide *when* a node's keys are known:
+        at submit time if the source frame carries the columns, else
+        the moment the upstream node completes."""
+        return None
+
+    def prefetch_keys(self, frame: Any) -> List[bytes]:
+        """Backend keys for ``frame`` — overridden by families that
+        support prefetch."""
+        raise NotImplementedError
+
+    def prefetch_async(self, frame: Any):
+        """Issue ``get_many`` for ``frame``'s keys on the I/O pool;
+        results land in the staging map for the next ``transform`` /
+        ``serve_from_store`` over the same keys.  Returns the pool
+        future (``None`` when there is nothing to fetch).  No stats,
+        no access notes — accounting happens at consumption.
+        """
+        if not self.prefetchable or self._closed:
+            return None
+        try:
+            keys = self.prefetch_keys(frame)
+        except (NotImplementedError, KeyError):
+            return None
+        todo = self._staging.covered(keys)
+        if not todo:
+            return None
+        backend = self._backend
+        staging = self._staging
+        writer = self._writer
+
+        def fetch():
+            want = todo
+            if writer is not None:
+                pending = writer.overlay_many(want)
+                if pending:
+                    staging.deposit(pending.items())
+                    want = [k for k in want if k not in pending]
+                    if not want:
+                        return
+            staging.deposit(zip(want, backend.get_many(want)))
+
+        from .dataplane import io_pool
+        fut = io_pool().submit(fetch)
+        self._staging.track(fut, todo)
+        return fut
+
+    def discard_staging(self) -> None:
+        """Drop unconsumed staged entries (run teardown)."""
+        if self._staging is not None:
+            self._staging.discard()
+
     def _lookup_many(self, keys: Sequence[bytes]
                      ) -> Tuple[List[Optional[bytes]], int]:
-        """Read ``keys`` from the backend.  Returns ``(blobs, 0)``: the
-        second number is the prefetched share of the reference's data
-        plane, which the port does not have."""
-        return self._backend.get_many(keys), 0
+        """Read ``keys`` through the data plane: the write-behind
+        overlay first (pending entries must be visible), then the
+        staging map, then the backend for whatever remains.  Returns
+        ``(blobs, n_prefetched)`` — the second number is how many
+        non-None blobs came out of the staging map, for
+        ``CacheStats.prefetched`` attribution by the caller."""
+        n = len(keys)
+        out: List[Optional[bytes]] = [None] * n
+        remaining = list(range(n))
+        if self._writer is not None:
+            pending = self._writer.overlay_many(keys)
+            if pending:
+                remaining = []
+                for i, k in enumerate(keys):
+                    v = pending.get(k)
+                    if v is not None:
+                        out[i] = v
+                    else:
+                        remaining.append(i)
+        prefetched = 0
+        if remaining and self._staging is not None:
+            # pop_many waits on any in-flight prefetch covering these
+            # keys before looking — the consumer must not race past a
+            # fetch that is about to land and hit the backend twice
+            staged = self._staging.pop_many([keys[i] for i in remaining])
+            if staged:
+                left = []
+                for i in remaining:
+                    k = keys[i]
+                    if k in staged:
+                        out[i] = staged[k]   # may be a staged miss (None)
+                        if staged[k] is not None:
+                            prefetched += 1
+                    else:
+                        left.append(i)
+                remaining = left
+        if remaining:
+            fetched = self._backend.get_many([keys[i] for i in remaining])
+            for i, v in zip(remaining, fetched):
+                out[i] = v
+        return out, prefetched
 
     def _recheck_many(self, keys: Sequence[bytes]
                       ) -> List[Optional[bytes]]:
-        """The locked miss-path recheck."""
-        return self._backend.get_many(keys)
+        """The locked miss-path recheck: the write-behind overlay (a
+        racing thread's compute may still be pending) then the backend.
+        The staging map is deliberately *not* consulted — its deposits
+        predate the lock and were already offered to ``_lookup_many``."""
+        if self._writer is None:
+            return self._backend.get_many(keys)
+        pending = self._writer.overlay_many(keys)
+        out: List[Optional[bytes]] = [pending.get(k) for k in keys]
+        remaining = [i for i, v in enumerate(out) if v is None]
+        if remaining:
+            fetched = self._backend.get_many([keys[i] for i in remaining])
+            for i, v in zip(remaining, fetched):
+                out[i] = v
+        return out
 
     def _store_many(self, items: Sequence[Tuple[bytes, bytes]]) -> None:
-        """Miss-path put, written through inside the compute-once
-        critical section."""
-        self._backend.put_many(items)
+        """Miss-path put: enqueue on the write-behind writer when one
+        is live, else write through synchronously.  Called inside the
+        compute-once critical section either way — the *enqueue* under
+        the lock is the sentinel that keeps in-process compute-once
+        exact (the recheck sees the overlay), while durability is
+        deferred to :meth:`_write_barrier` / the flush points."""
+        if self._writer is not None:
+            self._writer.put(list(items))
+        else:
+            self._backend.put_many(items)
+
+    def _write_barrier(self) -> None:
+        """Durability barrier before the backend's cross-process lock is
+        released (see ``WriteBehindWriter.barrier``): other processes'
+        locked rechecks cannot see the in-memory overlay, so the puts
+        must be on disk by the time they can acquire the lock — this is
+        what keeps compute-exactly-once exact across processes under
+        write-behind."""
+        if self._writer is not None:
+            self._writer.barrier()
+
+    def _drain_writes(self) -> None:
+        """Synchronously flush pending write-behind state (flush points:
+        ``close()``, ``drain()``, manifest refresh, eviction, store
+        enumeration)."""
+        if self._writer is not None:
+            self._writer.flush()
 
     def drain(self) -> None:
-        """Make the access sidecar current (every write is already
-        durable: puts are synchronous)."""
+        """Make every accepted write durable and the sidecars current —
+        the executor/service quiescence hook (graceful fleet drain)."""
+        self._drain_writes()
         self._flush_access()
 
     # -- wrapped transformer -------------------------------------------------
@@ -460,6 +630,11 @@ class CacheTransformer(Transformer):
     def close(self) -> None:
         if self._closed:
             return
+        if self._writer is not None:
+            try:
+                self._writer.close()     # final write-behind flush
+            except Exception:
+                pass                     # entries recompute; never corrupt
         if not self.budget.empty() and not self.readonly:
             try:
                 self.evict()             # automatic budget enforcement
@@ -470,6 +645,7 @@ class CacheTransformer(Transformer):
             self._update_manifest()
         except Exception:
             pass                         # manifest refresh is best-effort
+        self.discard_staging()
         self._close_backend()
         if self._temporary:
             shutil.rmtree(self.path, ignore_errors=True)

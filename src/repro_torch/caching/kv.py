@@ -1,8 +1,7 @@
 """KeyValueCache — row-wise key→value memoization (paper §4.1).
 
 Counterpart of ``repro.caching.kv`` (same keys, values and stores, so a
-directory filled by either package serves the other), on the
-synchronous path.
+directory filled by either package serves the other).
 
 Maps one or more *key* columns to one or more *value* columns under the
 assumption that rows are independent and values depend only on keys.
@@ -44,10 +43,11 @@ class KeyValueCache(CacheTransformer):
                  backend: Any = None,
                  fingerprint: Optional[str] = None,
                  on_stale: str = "error",
-                 budget: Any = None):
+                 budget: Any = None,
+                 async_writes: Optional[bool] = None):
         super().__init__(path, transformer, verify_fraction=verify_fraction,
                          fingerprint=fingerprint, on_stale=on_stale,
-                         budget=budget)
+                         budget=budget, async_writes=async_writes)
         self.key_cols: Tuple[str, ...] = \
             (key,) if isinstance(key, str) else tuple(key)
         self.value_cols: Tuple[str, ...] = \
@@ -61,6 +61,7 @@ class KeyValueCache(CacheTransformer):
             codec=KV_CODEC)
         self._backend: CacheBackend = open_backend(
             backend, self.path, default=self.default_backend)
+        self._init_dataplane()
 
     # -- backend -------------------------------------------------------------
     @property
@@ -71,6 +72,7 @@ class KeyValueCache(CacheTransformer):
         self._backend.close()
 
     def __len__(self) -> int:
+        self._drain_writes()             # enumeration is a flush point
         return len(self._backend)
 
     # -- transform -----------------------------------------------------------
@@ -90,6 +92,13 @@ class KeyValueCache(CacheTransformer):
     def _decode_value(self, blob: bytes) -> Tuple:
         return decode_kv_value(blob) if self.codec == KV_CODEC \
             else unpickle_value(blob)
+
+    # -- prefetch (keys derive from the input frame alone) -------------------
+    def prefetch_columns(self) -> Optional[Tuple[str, ...]]:
+        return self.key_cols
+
+    def prefetch_keys(self, frame: ColFrame) -> List[bytes]:
+        return self._keys_of(frame)
 
     def _transform_single(self, inp: ColFrame,
                           key: bytes) -> Optional[ColFrame]:
@@ -222,10 +231,13 @@ class KeyValueCache(CacheTransformer):
                 for i in idxs:
                     values[i] = val
             if not self.readonly:        # stale-readonly: never insert
-                # durable before the lock releases, so other processes'
-                # rechecks see it
+                # under write-behind this *enqueues* inside the locked
+                # section (the racing recheck sees the overlay); the
+                # barrier makes it durable before the lock releases so
+                # other processes' rechecks see it too
                 self._store_many(new_items)
                 self.stats.add(inserts=len(new_items))
+            self._write_barrier()
             return still
 
     # -- determinism verification (beyond paper §6) ---------------------------

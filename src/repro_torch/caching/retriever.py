@@ -1,10 +1,7 @@
 """RetrieverCache — one input row → many output rows (paper §4.3).
 
 Counterpart of ``repro.caching.retriever`` (same keys, codec and
-stores, so a directory filled by either package serves the other), on
-the synchronous path: puts are written through, and the reference's
-key prefetch (``prefetch_columns`` / ``prefetch_keys``) comes with the
-port's async data plane.
+stores, so a directory filled by either package serves the other).
 
 Caches whole per-query result frames.  Storage is delegated to a
 pluggable ``CacheBackend`` (``backends.py``); the default ``"dbm"``
@@ -55,10 +52,11 @@ class RetrieverCache(CacheTransformer):
                  backend: Any = None,
                  fingerprint: Optional[str] = None,
                  on_stale: str = "error",
-                 budget: Any = None):
+                 budget: Any = None,
+                 async_writes: Optional[bool] = None):
         super().__init__(path, retriever, verify_fraction=verify_fraction,
                          fingerprint=fingerprint, on_stale=on_stale,
-                         budget=budget)
+                         budget=budget, async_writes=async_writes)
         self.key_cols: Tuple[str, ...] = \
             (key,) if isinstance(key, str) else tuple(key)
         self._open_manifest(
@@ -66,6 +64,7 @@ class RetrieverCache(CacheTransformer):
             key_columns=self.key_cols, codec=RETRIEVER_CODEC)
         self._backend: CacheBackend = open_backend(
             backend, self.path, default=self.default_backend)
+        self._init_dataplane()
 
     @property
     def backend(self) -> CacheBackend:
@@ -102,7 +101,15 @@ class RetrieverCache(CacheTransformer):
         return ColFrame.from_dicts(pickle.loads(zlib.decompress(blob)))
 
     def __len__(self) -> int:
+        self._drain_writes()             # enumeration is a flush point
         return len(self._backend)
+
+    # -- prefetch (keys derive from the input frame alone) -------------------
+    def prefetch_columns(self) -> Optional[Tuple[str, ...]]:
+        return self.key_cols
+
+    def prefetch_keys(self, frame: ColFrame) -> List[bytes]:
+        return self._keys_of(frame)
 
     # -- store-only probe (cache-aware pruning, core/rewrite.py) -----------
     def serve_from_store(self, inp: ColFrame) -> Optional[ColFrame]:
@@ -201,8 +208,11 @@ class RetrieverCache(CacheTransformer):
                 items.append((hashes[i], self._encode_entry(entry)))
                 results[i] = entry
             if not self.readonly:        # stale-readonly: never insert
-                # durable before the lock releases, so other processes'
-                # rechecks see it
+                # write-behind: an enqueue under the lock (the racing
+                # recheck sees the overlay); the barrier makes it
+                # durable before the lock releases so other processes'
+                # rechecks see it too
                 self._store_many(items)
                 self.stats.add(inserts=len(still))
+            self._write_barrier()
             return still

@@ -33,14 +33,20 @@ class ScorerCache(KeyValueCache):
                  *, key: Any = ("query", "docno"), value: Any = ("score",),
                  verify_fraction: float = 0.0, backend: Any = None,
                  fingerprint: Optional[str] = None, on_stale: str = "error",
-                 budget: Any = None):
+                 budget: Any = None,
+                 async_writes: Optional[bool] = None):
         super().__init__(path, transformer, key=key, value=value,
                          verify_fraction=verify_fraction, backend=backend,
                          fingerprint=fingerprint, on_stale=on_stale,
-                         budget=budget)
+                         budget=budget, async_writes=async_writes)
 
-    # The inherited all-float fast path decodes a warm score batch with
-    # one ``frombuffer`` (the packed ``kv-fnv128-pack1`` value codec).
+    # Doc-keyed: ``docno`` only exists once the upstream retriever has
+    # produced its candidates, so the executors prefetch this cache the
+    # moment that node completes (overlapping sibling-branch work)
+    # rather than at submit time — ``prefetch_columns`` says so by
+    # naming columns the source frame does not carry.  The inherited
+    # all-float fast path decodes a warm score batch with one
+    # ``frombuffer`` (the packed ``kv-fnv128-pack1`` value codec).
 
     def transform(self, inp: ColFrame) -> ColFrame:
         if len(inp) == 0:

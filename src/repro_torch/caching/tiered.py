@@ -54,7 +54,8 @@ class TieredBackend(CacheBackend):
     persistent = True
     #: still worth prefetching: the front only absorbs *repeat* reads,
     #: so a run's first pass over a warm store pays the disk tier's
-    #: round trip (read by the reference's data plane)
+    #: round trip — exactly the read the I/O pool can overlap (and the
+    #: promote-on-hit then happens on the pool thread for free)
     prefetchable = True
 
     def __init__(self, path: Optional[str], *,

@@ -84,7 +84,7 @@ class IRNode:
     sched_priority: float = 0.0          # critical-path rank (operand-order)
     cache_skip: bool = False             # cache-place: cheaper to recompute
     backend_override: Optional[str] = None   # cache-place: hot-node promotion
-    # -- asynchronous data plane (the reference's caching/dataplane.py) ----
+    # -- asynchronous data plane (caching/dataplane.py) ---------------------
     #: plan-stamped: executors issue this node's cache reads on the I/O
     #: pool as soon as the feeding frame exists (False for graphs built
     #: outside ExecutionPlan — lowering alone never prefetches)

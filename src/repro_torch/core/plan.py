@@ -37,10 +37,11 @@ cache manifests and the plan manifest key off these fingerprints.
 fingerprint, cache family, which pass touched it); the same record is
 persisted in the plan manifest, in the reference's format.
 
-The reference's asynchronous data plane (``prefetch=``, write-behind
-puts, ``warm()``) comes with a later slice of the port (ROADMAP Queue A
-item 3): planner-inserted caches here read and write their stores
-synchronously.
+The asynchronous data plane (``caching/dataplane.py``) is on by
+default, as in the reference: planner-inserted caches prefetch their
+warm-path reads on the I/O pool and buffer miss-path writes behind
+(``prefetch=``, ``drain()``); ``warm()`` precomputes a plan's caches
+offline.
 
 ``run_with_precompute``, ``run_with_trie`` and ``Experiment`` remain
 thin wrappers over this module — the planner is the single execution
@@ -57,9 +58,10 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
 from .cost import (CostContext, CostModel, annotate_node_actuals,
-                   fold_costs, plan_fingerprints, _round_cost)
+                   fold_costs, plan_fingerprints, should_prefetch,
+                   _round_cost)
 from .executor import (_Recorder, resolve_n_shards, run_concurrent,
-                       run_sequential)
+                       run_sequential, run_warm)
 from .frame import ColFrame
 from .ir import IRNode, PlanGraph, lower, plan_size, render_explain
 from .pipeline import Transformer, pipeline_hash
@@ -79,8 +81,9 @@ class PlanStats(PrecomputeStats):
     nodes_planned: int = 0               # unique DAG nodes (excl. source)
     cache_hits: int = 0                  # memo hits across inserted caches
     cache_misses: int = 0
-    #: subset of ``cache_hits`` served by prefetch — the reference's
-    #: data plane; always 0 until the port has one
+    #: subset of ``cache_hits`` served from the I/O-pool staging map
+    #: (``caching/dataplane.py``) — attributed to the consuming node at
+    #: consumption time, so hits+misses stay exactly the request count
     cache_prefetched: int = 0
     node_times_s: Dict[str, float] = field(default_factory=dict)
     node_exec_counts: Dict[str, int] = field(default_factory=dict)
@@ -93,7 +96,9 @@ class PlanStats(PrecomputeStats):
     node_compute_queries: Dict[str, int] = field(default_factory=dict)
     wall_time_s: float = 0.0
     n_queries: int = 0                   # rows in the query frame
-    # -- online serving (filled by the reference's PipelineService) --------
+    # -- online serving (filled by PipelineService, see serve/service.py) ----
+    #: per-node online latency (p50/p99 ms), executions and rows, plus
+    #: service-level queue depth / flush-trigger / batch-occupancy stats
     online: Dict[str, Any] = field(default_factory=dict)
     # -- optimizer ----------------------------------------------------------
     optimizer_passes: List[str] = field(default_factory=list)
@@ -184,9 +189,15 @@ class ExecutionPlan:
         ``repro_torch.core.rewrite.OPTIMIZER_PASSES``) runs exactly
         those, in the given order.
     prefetch:
-        The reference's asynchronous data plane (its default is on).
-        Not ported yet: ``prefetch=True`` raises ``NotImplementedError``;
-        the port runs as the reference does at ``prefetch=False``.
+        Asynchronous data plane (``caching/dataplane.py``): when True
+        (default), planner-inserted caches on prefetchable backends are
+        stamped so the executors issue their warm-path store reads on a
+        background I/O pool as soon as each node's input frame exists,
+        overlapping compute; miss-path writes move to a bounded
+        write-behind queue flushed on ``close()``/``drain()``.  Results
+        are per-qid bit-identical with and without it; gated per node
+        by :func:`repro_torch.core.cost.should_prefetch` and globally by
+        ``REPRO_PREFETCH=0`` / ``REPRO_WRITE_BEHIND=0``.
     """
 
     def __init__(self, pipelines: Sequence[Transformer], *,
@@ -196,13 +207,7 @@ class ExecutionPlan:
                  on_stale: str = "error",
                  cache_budget: Any = None,
                  optimize: Union[str, Sequence[str], None] = "all",
-                 prefetch: bool = False):
-        if prefetch:
-            raise NotImplementedError(
-                "ExecutionPlan(prefetch=True): the async data plane arrives "
-                "with the tiers-and-data-plane slice of repro_torch (ROADMAP "
-                "Queue A item 3); planner-inserted caches read their stores "
-                "synchronously, as the reference's do at prefetch=False")
+                 prefetch: bool = True):
         self.pipelines: List[Transformer] = list(pipelines)
         self.cache_dir = cache_dir
         self.cache_backend = cache_backend
@@ -210,6 +215,7 @@ class ExecutionPlan:
         self._memo_factory = memo_factory
         self.on_stale = on_stale
         self.optimize = optimize
+        self.prefetch = bool(prefetch)
         passes = resolve_passes(optimize)
 
         # -- layer 1: lowering ---------------------------------------------
@@ -398,15 +404,41 @@ class ExecutionPlan:
                     repr(basis).encode()).hexdigest()[:16]
                 path = os.path.join(
                     self.cache_dir, pipeline_hash(node.stage) + "-" + digest)
-            # the reference also asks for async_writes=True (write-behind
-            # puts); the port's families have no data plane yet and take
-            # no such argument, so their puts stay synchronous
             wanted = {**kwargs, "fingerprint": fps[node.id],
-                      "on_stale": self.on_stale}
+                      "on_stale": self.on_stale,
+                      # planner-inserted caches opt into write-behind:
+                      # the plan's close()/collect path drains them, and
+                      # relaxing cross-process puts from exactly-once to
+                      # at-least-once-with-identical-results is safe for
+                      # deterministic transformers (hand-wrapped caches
+                      # keep synchronous puts unless asked)
+                      "async_writes": True}
             if node.backend_override is not None:
                 wanted["backend"] = node.backend_override
             node.cache = factory(node.stage, path,
                                  **_accepted_kwargs(factory, wanted))
+        self._stamp_prefetch()
+
+    def _stamp_prefetch(self) -> None:
+        """Mark which memoized nodes the executors should prefetch:
+        plan opt-in (``prefetch=``), a global kill switch
+        (``REPRO_PREFETCH=0``), the backend's ``prefetchable`` flag
+        (memory-speed tiers decline), and the cost gate
+        (:func:`~repro_torch.core.cost.should_prefetch` on the measured
+        store round trip).  Purely a scheduling decision — results are
+        identical either way."""
+        from ..caching.dataplane import prefetch_default
+        if not (self.prefetch and prefetch_default()):
+            return
+        cost = self.graph.cost
+        round_trip = cost.round_trip_s if cost is not None else None
+        if not should_prefetch(round_trip):
+            return
+        for node in self.graph.nodes:
+            cache = node.cache
+            if cache is None or not getattr(cache, "prefetchable", False):
+                continue
+            node.prefetch = True
 
     # -- explain / manifests ------------------------------------------------
     def _build_record(self) -> Dict[str, Any]:
@@ -578,10 +610,20 @@ class ExecutionPlan:
 
     def close(self) -> None:
         """Close planner-inserted caches (flushes temporary stores,
-        access sidecars and manifests, and enforces budgets)."""
+        write-behind queues, access sidecars and manifests, and enforces
+        budgets)."""
         for node in self.graph.nodes:
             if node.cache is not None and hasattr(node.cache, "close"):
                 node.cache.close()
+
+    def drain(self) -> None:
+        """Make planner-inserted caches durable without closing them:
+        flush each family's write-behind queue and access log
+        (``caching/dataplane.py``).  A crash after ``drain()`` returns
+        loses nothing; a crash before it recomputes pending entries."""
+        for node in self.graph.nodes:
+            if node.cache is not None and hasattr(node.cache, "drain"):
+                node.cache.drain()
 
     def __enter__(self) -> "ExecutionPlan":
         return self
@@ -646,6 +688,35 @@ class ExecutionPlan:
             stats.occupancy = busy / (workers * stats.wall_time_s) \
                 if stats.wall_time_s > 0 else 0.0
         return outs, stats
+
+    def warm(self, queries: Any, *, batch_size: Optional[int] = None,
+             chunk_rows: Optional[int] = None) -> PlanStats:
+        """Speculative precomputation: execute the DAG over ``queries``
+        purely to populate the planner-inserted caches, discarding the
+        outputs (the paper's precomputation idea as an offline tool —
+        ``caching.warming.warm_scenario`` drives this).
+
+        The query frame is processed in qid-aligned chunks of at most
+        ``chunk_rows`` rows (default: one chunk), so arbitrarily large
+        warming logs run in bounded memory; chunking reuses the offline
+        scheduler's shard machinery, so results in the caches are
+        identical to a single full run.  Returns the usual
+        :class:`PlanStats` (``cache_misses`` counts entries actually
+        precomputed; a second warm over the same frame is all hits).
+        """
+        t0 = time.perf_counter()
+        frame = ColFrame.coerce(queries)
+        cache_base = self._cache_counters()
+        compute_base = self._compute_counters()
+        stats = self._new_stats()
+        stats.n_queries = len(frame)
+        rec = _Recorder()
+        run_warm(self.graph, frame, batch_size, chunk_rows=chunk_rows,
+                 rec=rec)
+        self._fill_exec_stats(stats, rec)
+        self._fill_compute_stats(stats, compute_base)
+        self._finalize_stats(stats, cache_base, t0)
+        return stats
 
     def _new_stats(self) -> PlanStats:
         agg = self._aggregate_pass_stats()

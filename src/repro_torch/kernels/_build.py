@@ -11,19 +11,26 @@ may include headers of its own (``csrc/*.cuh``); they are part of the
 hash.  The flags need no ``-lcuda``: the one driver-API call, TMA's
 ``cuTensorMapEncodeTiled`` in ``flash_attention``, is looked up through
 the runtime's ``cudaGetDriverEntryPoint``.
+
+Threads may reach a kernel's first launch together (the streaming
+executor's pool does): :func:`load` builds and loads each library once
+per process under a lock, and each build writes a temporary file named
+for its process and thread, so no two builds share one.  The wrappers'
+launch counters are bumped under a lock too (:func:`count_launches`).
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["sources", "library_path", "build_all", "load", "build_log"]
+__all__ = ["sources", "library_path", "build_all", "load", "build_log",
+           "count_launches"]
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
@@ -79,7 +86,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     procs = {}
     try:
         for n in todo:
-            tmp = out[n].with_name(f"{out[n].name}.{os.getpid()}.tmp")
+            tmp = out[n].with_name(f"{out[n].name}.{os.getpid()}."
+                                   f"{threading.get_ident()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT,
@@ -100,7 +108,27 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     return out
 
 
-@functools.cache
+_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed."""
-    return ctypes.CDLL(str(build_all([name])[name]))
+    """The kernel's shared library, built first if needed: once per
+    process, however many threads ask at once."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        with _LOAD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                path = build_all([name])[name]
+                lib = _LOADED[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launches(wrapper, n: int) -> None:
+    """``wrapper.launches += n``, atomic across threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += n

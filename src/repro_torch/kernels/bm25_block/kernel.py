@@ -58,7 +58,7 @@ def bm25_block(tf: torch.Tensor, idf: torch.Tensor, doc_len: torch.Tensor,
                    torch.cuda.current_stream(tf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bm25_block launch failed with CUDA error {err}")
-    bm25_block.launches += 1
+    _build.count_launches(bm25_block, 1)
     return out
 
 

@@ -61,7 +61,7 @@ def cachekey_hash(tokens: torch.Tensor, out: Optional[torch.Tensor] = None
     if err != 0:
         raise RuntimeError(f"cachekey_hash launch failed with CUDA error "
                            f"{err}")
-    cachekey_hash.launches += 1
+    _build.count_launches(cachekey_hash, 1)
     return out
 
 

@@ -198,7 +198,7 @@ def dense_topk(q: torch.Tensor, c: torch.Tensor, *, k: int
         _check(_entry("dense_topk_merge")(
             *out, vals.data_ptr(), idxs.data_ptr(), n_q, p.splits, k,
             p.k_pad, q.device.index, stream))
-    dense_topk.launches += p.launches
+    _build.count_launches(dense_topk, p.launches)
     return vals, idxs
 
 
@@ -217,7 +217,7 @@ def _select(q: torch.Tensor, c: torch.Tensor, k: int, p: Plan,
             vals.data_ptr() + c0 * k * 4, idxs.data_ptr() + c0 * k * 4,
             min(p.q_chunk, n_q - c0), n_docs, d, k, p.k_pad, p.splits,
             p.per_split, p.stages, p.slices, dev.index, stream))
-    dense_topk.launches += p.launches
+    _build.count_launches(dense_topk, p.launches)
     return vals, idxs
 
 

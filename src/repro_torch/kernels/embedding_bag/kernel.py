@@ -174,7 +174,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"embedding_bag launch failed with CUDA error "
                            f"{err}")
-    embedding_bag.launches += 1
+    _build.count_launches(embedding_bag, 1)
     return call.out
 
 

@@ -168,7 +168,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention ({path} path) launch failed "
                            f"with CUDA error {err}")
-    flash_attention.launches += n_launches
+    _build.count_launches(flash_attention, n_launches)
     flash_attention.paths[path] += 1
     return out
 

@@ -107,18 +107,18 @@ def test_memory_backend_and_registry_match_reference(tmp_path):
     for bad in ("nope", "mmap:pickle", "tiered:memory"):
         with pytest.raises(ValueError):
             tcache.select_backend(bad)
-    # the tiered selector opens the reference's TieredBackend layout;
-    # the mmap tier is not ported yet
-    for sel in ("tiered", "tiered:sqlite", "tiered:pickle"):
+    # the combinator selectors open the reference's tiers
+    for sel, kind in (("tiered", "TieredBackend"),
+                      ("tiered:sqlite", "TieredBackend"),
+                      ("tiered:pickle", "TieredBackend"),
+                      ("mmap:sqlite", "MmapTier"), ("mmap:dbm", "MmapTier")):
         opened = [m.open_backend(sel, str(tmp_path / f"{m.__name__}{sel}"))
                   for m in (tcache, jcache)]
         kinds = [(type(o).__name__, o.name, type(o.disk).__name__)
                  for o in opened]
-        assert kinds[0] == kinds[1] and kinds[0][0] == "TieredBackend"
+        assert kinds[0] == kinds[1] and kinds[0][0] == kind
         for o in opened:
             o.close()
-    with pytest.raises(NotImplementedError, match="tiers-and-data-plane"):
-        tcache.open_backend("mmap:sqlite", str(tmp_path / "mmap"))
     assert tcache.measure_round_trip("memory") > 0
     assert tcache.measure_round_trip("tiered:sqlite") > 0
 

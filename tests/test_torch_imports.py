@@ -65,6 +65,29 @@ def test_module_list_covers_the_slice():
         assert f"repro_torch.{name}" in mods
 
 
+SERVING_SLICE = ("caching.dataplane", "caching.mmap_tier", "caching.warming",
+                 "serve", "serve.registry", "serve.service", "serve.config",
+                 "launch", "launch.serve", "cli", "cli.__main__", "cli.plan",
+                 "cli.serve")
+
+
+@pytest.mark.parametrize("name", SERVING_SLICE)
+def test_serving_slice_modules_are_listed_and_stand_alone(name):
+    """Each module of the serving slice exists, and importing it alone
+    in a fresh interpreter pulls in neither jax nor repro."""
+    assert f"repro_torch.{name}" in set(_modules())
+    script = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module('repro_torch.{name}')\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('jax', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def _imported_roots(path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -130,8 +130,9 @@ def _cold_then_warm(core, name, d, plan_kw=None, **run_kw):
 
 @pytest.mark.parametrize("name", list(SETS))
 def test_cold_then_warm_equals_reference(tmp_path, name):
-    """Against the reference at ``prefetch=False`` (the port has no data
-    plane yet), and hits and misses against its default run too."""
+    """The port's default run (prefetch on) against the reference at
+    ``prefetch=False`` and at its default: hits and misses do not depend
+    on prefetch."""
     d = {k: str(tmp_path / k) for k in PKGS}
     got = {"port": _cold_then_warm(tcore, name, d["port"]),
            "ref": _cold_then_warm(jcore, name, d["ref"],
@@ -242,19 +243,34 @@ def test_sharded_warm_run_equals_reference(tmp_path, backend):
     assert rows["port"][1][1][4] == 1 and rows["port"][1][3][0] == 0
 
 
-def test_unported_parts_refuse_with_their_queue_item(tmp_path):
-    t = toy(tcore)
-    pipes = pipeline_sets(t)["ablation"]
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        tcore.ExecutionPlan(pipes, cache_dir=str(tmp_path / "a"),
-                            prefetch=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        tcore.ExecutionPlan(pipes, cache_dir=str(tmp_path / "b"),
-                            cache_backend="mmap:sqlite")
-    with tcore.ExecutionPlan(pipes, cache_dir=str(tmp_path / "c"),
-                             prefetch=False) as plan:
-        _, st = plan.run(t.queries())
-    assert (st.cache_misses, st.cache_prefetched) == (3, 0)
+def test_unported_parts_refuse_with_their_queue_item(tmp_path, monkeypatch):
+    """What this test refused before the data plane was ported
+    (``prefetch=True``, the ``mmap:sqlite`` tier) now runs and counts
+    as the reference does: cold, then warm with prefetch on and off.
+    The store round trip is pinned above the prefetch gate, and
+    ``cache-place`` (which decides from measured stage times) is left
+    out, so both packages stamp and keep the same caches."""
+    pin_round_trip(monkeypatch, 1e-5)
+    passes = ["normalize", "cse", "pushdown", "cache-prune"]
+    got = {}
+    for k, (core, _) in PKGS.items():
+        t = toy(core)
+        pipes = pipeline_sets(t)["ablation"]
+        rows = []
+        for backend, prefetch in (("sqlite", True), ("sqlite", True),
+                                  ("sqlite", False), ("mmap:sqlite", True)):
+            with core.ExecutionPlan(pipes, cache_dir=str(tmp_path / k),
+                                    cache_backend=backend,
+                                    optimize=passes,
+                                    prefetch=prefetch) as plan:
+                _, st = plan.run(t.queries())
+            rows.append((st.cache_hits, st.cache_misses,
+                         st.cache_prefetched))
+        got[k] = rows
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == (0, 3, 0)
+    assert got["port"][1][2] > 0 and got["port"][2][2] == 0
+    assert got["port"][3] == (3, 0, 0)           # the mmap tier opts out
 
 
 def test_memory_backend_and_memo_factory_equal_reference():
