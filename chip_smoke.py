@@ -72,7 +72,22 @@ Phases, one output line or more each, the JSON result last:
    the uncached legs ``dense_topk`` once per micro-batch; then
    ``dense_topk`` at the serving shape against its plain version, timed
    beside ``torch.topk(q @ c.T)``;
-8. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+8. fleet: the same ``hybrid`` scenario served by spawned worker
+   processes on the card, each leg one ``drive_closed_loop`` (400
+   closed-loop requests from 4 clients) or one open-loop burst: (f1)
+   two workers, no cache, round robin — every worker on ``cuda:0``
+   launches ``dense_topk``, and a second fleet's per-qid results equal
+   an offline ``ExecutionPlan.run``; (f2) ``python -m repro_torch.cli
+   cache warm hybrid`` into a fresh ``mmap:sqlite`` directory in a
+   subprocess, then two workers warm-starting from it: no warm or
+   online miss, no ``dense_topk`` launch after a worker's start, and
+   ``cache verify`` / ``cache ls --json`` on the directory; (f3) three
+   workers at ``max_batch`` 1, 60 requests submitted open loop and one
+   worker killed: every request resolves to the offline result, the
+   slot is respawned and every other worker exits 0.  The workers'
+   launches come from their drain reports: the parent's counters cannot
+   see another process;
+9. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
@@ -192,6 +207,9 @@ SERVE_REQUESTS, SERVE_CLIENTS = 400, 4
 # only where a retriever's k-th and (k+1)-th scores lie within it.  The
 # bm25 scenario is exact
 SERVED_RTOL = 1e-5
+# the fleet phase: the serve phase's config with this many worker
+# processes a leg, and the chaos leg's open-loop burst
+FLEET_WORKERS, CHAOS_WORKERS, CHAOS_REQUESTS = 2, 3, 60
 
 
 def log(msg: str) -> None:
@@ -1499,6 +1517,234 @@ def run_serve(torch, card: str) -> dict:
             "cachekey_hash": sum(r["cachekey_hash_launches"] for r in legs)}
 
 
+def fleet_line(card: str, label: str, report: dict, **extra) -> dict:
+    """Prints one ``fleet:`` line from a drain report (and the leg's
+    latency and throughput in ``extra``); returns the line's record."""
+    workers = report["workers"]
+    row = {"leg": label, **extra,
+           "batches": report["online"]["batches"],
+           "occupancy": report["online"]["batch_occupancy"],
+           "cache_hits": report["online"]["cache_hits"],
+           "cache_misses": report["online"]["cache_misses"],
+           "cache_prefetched": sum(w["cache_prefetched"] for w in workers),
+           "workers": {w["worker"]: {
+               "device": w["device"], "requests": w["requests"],
+               "start_s": {k: round(v, 3) for k, v in w["start_s"].items()},
+               "warm_wall_s": w.get("warm_wall_s"),
+               "warm_hits": w.get("warm_hits"),
+               "warm_misses": w.get("warm_misses"),
+               "launches_at_start": w["kernel_launches_at_start"],
+               "launches": w["kernel_launches"]} for w in workers},
+           "exit_codes": report["exit_codes"],
+           "lost_exit_codes": report["lost_exit_codes"],
+           "respawns": report["respawns"], "requeued": report["requeued"]}
+    log(f"fleet: {json.dumps(row)}; {card}")
+    return row
+
+
+def fleet_launches(report: dict) -> dict:
+    """The kernels' launches in the drained workers of one fleet."""
+    return {k: sum(w["kernel_launches"][k] for w in report["workers"])
+            for k in ("dense_topk", "cachekey_hash")}
+
+
+def check_fleet_workers(label: str, report: dict, n: int, device: str,
+                        cuda: bool) -> None:
+    """Raises unless ``n`` workers drained, each on ``device``, with exit
+    code 0, and (on the card) each launched ``cachekey_hash`` at start."""
+    codes = report["exit_codes"]
+    if len(report["workers"]) != n or set(codes.values()) != {0} \
+            or len(codes) != n:
+        raise AssertionError(f"fleet: {label}: {n} workers must drain and "
+                             f"exit 0: exit codes {codes}, "
+                             f"{len(report['workers'])} drained")
+    for w in report["workers"]:
+        if w["device"] != device:
+            raise AssertionError(f"fleet: {label}: worker {w['worker']} "
+                                 f"served on {w['device']}, not {device}")
+        if cuda and w["kernel_launches_at_start"]["cachekey_hash"] < 1:
+            raise AssertionError(f"fleet: {label}: worker {w['worker']} "
+                                 f"compiled its plan without cachekey_hash")
+
+
+def cli(*args: str) -> subprocess.CompletedProcess:
+    """``python -m repro_torch.cli ...`` in a subprocess of this checkout."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-m", "repro_torch.cli", *args],
+                          capture_output=True, text=True, env=env,
+                          timeout=600)
+
+
+def run_fleet(torch, card: str, base=None) -> dict:
+    """The fleet phase (module docstring, item 8) over ``base``, the
+    serve phase's config unless given.  Returns the launches of
+    ``dense_topk`` and ``cachekey_hash`` the drained workers made."""
+    import dataclasses
+
+    from repro_torch.caching import BACKENDS
+    from repro_torch.caching.backends import split_combinator
+    from repro_torch.core import ColFrame, ExecutionPlan
+    from repro_torch.ir import BM25Retriever, DenseRetriever
+    from repro_torch.serve import (FleetService, ServeConfig, build_service,
+                                   drive_closed_loop)
+
+    base = base or ServeConfig(**SERVE)
+    cuda = base.device != "cpu"
+    device = "cuda:0" if cuda else "cpu"
+    scenario = base.build_scenario()
+    retrievers = find_stages(scenario.pipeline, (DenseRetriever,
+                                                 BM25Retriever))
+    offline = ExecutionPlan([scenario.pipeline]).run(scenario.topics)[0][0]
+    offline_by_qid = {str(key[0]): offline.take(idx) for key, idx in
+                      offline.group_indices(["qid"]).items()}
+    rows = list(zip([str(q) for q in scenario.topics["qid"].tolist()],
+                    scenario.topics["query"].tolist()))
+    launches = collections.Counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="fleet-", dir=str(build)))
+    try:
+        # (f1) two workers, no cache, round robin
+        cfg = dataclasses.replace(base, workers=FLEET_WORKERS, routing="rr")
+        t = time.perf_counter()
+        rec = drive_closed_loop(cfg, scenario=scenario,
+                                requests=SERVE_REQUESTS,
+                                clients=SERVE_CLIENTS, drain=True)
+        fleet_line(card, "f1: 2 workers, no cache", rec["fleet"],
+                   requests=rec["requests"], p50_ms=rec["p50_ms"],
+                   p99_ms=rec["p99_ms"], rps=rec["throughput_rps"],
+                   wall_s=round(time.perf_counter() - t, 3))
+        check_fleet_workers("f1", rec["fleet"], FLEET_WORKERS, device, cuda)
+        if rec["requests"] != SERVE_REQUESTS or not rec["drained"]:
+            raise AssertionError(f"fleet: f1 resolved {rec['requests']} "
+                                 f"requests, drained {rec['drained']}")
+        if cuda and any(w["kernel_launches"]["dense_topk"] < 1
+                        for w in rec["fleet"]["workers"]):
+            raise AssertionError("fleet: f1: a worker never launched "
+                                 "dense_topk")
+        launches.update(fleet_launches(rec["fleet"]))
+        t = time.perf_counter()
+        with build_service(cfg) as svc:
+            futs = [svc.submit(qid, query) for qid, query in rows]
+            served = ColFrame.concat([f.result(120) for f in futs])
+            report = svc.drain()
+        fleet_line(card, "f1: every topic once", report,
+                   requests=len(rows),
+                   wall_s=round(time.perf_counter() - t, 3))
+        check_fleet_workers("f1 topics", report, FLEET_WORKERS, device, cuda)
+        launches.update(fleet_launches(report))
+        worst, ties = served_vs_offline(served, offline, retrievers,
+                                        base.cutoff)
+        log(f"fleet: f1: all {len(rows)} topics served by the fleet equal "
+            f"one offline ExecutionPlan.run: docnos equal on every qid but "
+            f"{ties} near ties, scores within {worst:.3g} relative "
+            f"(tolerance {SERVED_RTOL})")
+
+        # (f2) warm: cache warm in a subprocess, then a warm-started fleet
+        d = root / "f2"
+        t = time.perf_counter()
+        warm = cli("cache", "warm", base.pipeline, "--cache-dir", str(d),
+                   "--backend", "mmap:sqlite", "--scale", str(base.scale),
+                   "--cutoff", str(base.cutoff), "--num-results",
+                   str(base.num_results), "--seed", str(base.seed),
+                   *(["--device", "cpu"] if not cuda else []), "--json")
+        if warm.returncode != 0:
+            raise AssertionError(f"fleet: cache warm failed:\n"
+                                 f"{warm.stderr[-3000:]}")
+        log(f"fleet: f2: cache warm {json.dumps(json.loads(warm.stdout))} "
+            f"in {time.perf_counter() - t:.1f} s (subprocess)")
+        cfg = dataclasses.replace(base, workers=FLEET_WORKERS,
+                                  cache_dir=str(d), backend="mmap:sqlite",
+                                  warm_start=True)
+        t = time.perf_counter()
+        rec = drive_closed_loop(cfg, scenario=scenario,
+                                requests=SERVE_REQUESTS,
+                                clients=SERVE_CLIENTS, drain=True)
+        fl = rec["fleet"]
+        fleet_line(card, "f2: 2 workers, warm mmap:sqlite", fl,
+                   requests=rec["requests"], p50_ms=rec["p50_ms"],
+                   p99_ms=rec["p99_ms"], rps=rec["throughput_rps"],
+                   wall_s=round(time.perf_counter() - t, 3))
+        check_fleet_workers("f2", fl, FLEET_WORKERS, device, cuda)
+        launches.update(fleet_launches(fl))
+        for w in fl["workers"]:
+            if w.get("warm_misses") != 0 or not w.get("warm_hits"):
+                raise AssertionError(f"fleet: f2: worker {w['worker']} "
+                                     f"warmed with {w.get('warm_hits')} "
+                                     f"hits, {w.get('warm_misses')} misses")
+            if w["kernel_launches"]["dense_topk"] != \
+                    w["kernel_launches_at_start"]["dense_topk"]:
+                raise AssertionError(f"fleet: f2: worker {w['worker']} "
+                                     f"launched dense_topk after its start")
+        if fl["online"]["cache_misses"] != 0 or \
+                fl["online"]["cache_hits"] < 1:
+            raise AssertionError(f"fleet: f2 missed: {fl['online']}")
+        ver = cli("cache", "verify", str(d))
+        ls = cli("cache", "ls", "--json", str(d))
+        if ver.returncode != 0 or ls.returncode != 0:
+            raise AssertionError(f"fleet: cache verify / ls failed:\n"
+                                 f"{ver.stdout[-2000:]}{ls.stderr[-2000:]}")
+        dirs = json.loads(ls.stdout)["dirs"]
+        referenced = {n["dir"] for f in (d / "plans").glob("*.json")
+                      for n in json.loads(f.read_text())["nodes"]
+                      if n.get("dir")}
+        counted = {}
+        for r in dirs:
+            combo = split_combinator(r["backend"])
+            store = BACKENDS[combo[1] if combo else r["backend"]](r["path"])
+            try:
+                counted[r["dir"]] = (r["entry_count"], len(store))
+            finally:
+                store.close()
+        if not referenced or not referenced <= set(counted) or \
+                any(a != b or a < 1 for a, b in counted.values()):
+            raise AssertionError(f"fleet: f2: cache ls lists "
+                                 f"{counted} (manifest, store), the plans "
+                                 f"reference {sorted(referenced)}")
+        log(f"fleet: f2: cache verify exit 0 "
+            f"({ver.stdout.strip().splitlines()[-1]}); cache ls --json: "
+            f"{len(dirs)} node directories ({len(referenced)} referenced "
+            f"by the last plan manifest), entries (manifest, store) "
+            f"{json.dumps(counted)}")
+
+        # (f3) chaos: three workers, one killed mid-stream
+        cfg = dataclasses.replace(base, workers=CHAOS_WORKERS, max_batch=1)
+        t = time.perf_counter()
+        with FleetService(cfg) as svc:
+            start = time.perf_counter() - t
+            t = time.perf_counter()
+            sent = [rows[i % len(rows)] for i in range(CHAOS_REQUESTS)]
+            futs = [svc.submit(qid, query) for qid, query in sent]
+            killed = svc.kill_worker()
+            frames = [f.result(120) for f in futs]
+            wall = time.perf_counter() - t
+            summary = svc.stats.summary()
+            report = svc.drain()
+        for (qid, _), frame in zip(sent, frames):
+            served_vs_offline(frame, offline_by_qid[qid], retrievers,
+                              base.cutoff)
+        fleet_line(card, f"f3: 3 workers, max_batch 1, worker {killed} "
+                   f"killed", report, requests=len(frames),
+                   p50_ms=summary["p50_ms"], p99_ms=summary["p99_ms"],
+                   rps=round(len(frames) / wall, 2),
+                   wall_s=round(wall, 3), start_s=round(start, 3))
+        check_fleet_workers("f3", report, CHAOS_WORKERS, device, cuda)
+        launches.update(fleet_launches(report))
+        if report["respawns"] < 1 or killed not in report["lost_exit_codes"]:
+            raise AssertionError(f"fleet: f3: respawns "
+                                 f"{report['respawns']}, lost "
+                                 f"{report['lost_exit_codes']}")
+        log(f"fleet: f3: all {len(frames)} requests resolved equal to "
+            f"offline; worker {killed} killed (exit code "
+            f"{report['lost_exit_codes'][killed]}), "
+            f"{report['respawns']} respawned, {report['requeued']} "
+            f"requeued")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(launches)
+
+
 def row_by_row_fingerprints(graph):
     """(node fingerprints, plan id) one ``digest_bytes`` at a time, as
     the reference computes them (its ``core/cost.py``
@@ -1623,6 +1869,12 @@ def main() -> int:
     log(f"serve: in {time.perf_counter() - t:.1f} s, launches "
         f"{json.dumps(served)}")
 
+    # -- 8. the fleet: the hybrid scenario in worker processes ----------
+    t = time.perf_counter()
+    fleet = run_fleet(torch, card)
+    log(f"fleet: in {time.perf_counter() - t:.1f} s, launches in the "
+        f"workers {json.dumps(fleet)}")
+
     # the hash kernel at the main path's largest digest batch
     n_main, L_main = t2["batch"]
     tok = torch.randint(-2**31, 2**31, (n_main, L_main),
@@ -1642,19 +1894,20 @@ def main() -> int:
         f"{hash_timed[(1, 64)][0]:.4f} ms, at (65536, 64): "
         f"{hash_timed[(65536, 64)][0]:.4f} ms; {card}")
 
-    # -- 8. result lines ----------------------------------------------------
+    # -- 9. result lines ----------------------------------------------------
     log(json.dumps({"kernels": [{
         "name": "dense_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/dense_topk/csrc/dense_topk.cu",
         "replaces": "src/repro/kernels/dense_topk/kernel.py:96",
-        "launches": launches + planner["dense_topk"] + served["dense_topk"],
+        "launches": launches + planner["dense_topk"] + served["dense_topk"]
+        + fleet["dense_topk"],
         **topk_entry}, {
         "name": "cachekey_hash", "route": "cuda",
         "source": "src/repro_torch/kernels/cachekey_hash/csrc/"
                   "cachekey_hash.cu",
         "replaces": "src/repro/kernels/cachekey_hash/kernel.py:54",
         "launches": t2["launches"] + planner["cachekey_hash"]
-        + served["cachekey_hash"],
+        + served["cachekey_hash"] + fleet["cachekey_hash"],
         "max_abs_err": 0, "ms": h_ms,
         "plain_ms": h_plain, "bound_ms": h_bound, "bound_by": h_by,
         "library_ms": None}, {

@@ -3,32 +3,22 @@
 Counterpart of ``repro.cli``.  Subcommands register themselves on the
 top-level parser:
 
+* ``cache`` (``cli/cache.py``) — inspection, verification, warming,
+  eviction, garbage collection and export/import of cache directories
+  built on the provenance manifests of ``caching/provenance.py``;
 * ``plan`` (``cli/plan.py``) — render recorded execution plans with the
   same ASCII tree as ``ExecutionPlan.explain()``;
-* ``serve`` (``cli/serve.py``) — stand up a ``PipelineService`` over a
-  registry pipeline and drive it with a closed-loop request stream
-  (micro-batching, planner caches, online latency stats);
-* ``cache`` — the reference's cache-directory tooling (inspection,
-  verification, garbage collection, export/import, warming) is not
-  ported yet: it raises ``NotImplementedError``.
+* ``serve`` (``cli/serve.py``) — stand up a ``PipelineService`` (or a
+  fleet of them) over a registry pipeline and drive it with a
+  closed-loop request stream (micro-batching, planner caches, online
+  latency stats).
 """
 from __future__ import annotations
 
 import argparse
 from typing import List, Optional
 
-__all__ = ["main", "build_parser", "CACHE_NOT_PORTED"]
-
-#: why ``cache`` is refused
-CACHE_NOT_PORTED = (
-    "repro_torch.cli cache: the cache-directory tooling (the reference's "
-    "cli/cache.py: ls, verify, gc, evict, export/import, warm) is not "
-    "ported to repro_torch yet (ROADMAP Queue A item 4); warm a scenario "
-    "with repro_torch.caching.warm_scenario")
-
-
-def _cmd_cache(args) -> int:
-    raise NotImplementedError(CACHE_NOT_PORTED)
+__all__ = ["main", "build_parser"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,11 +27,10 @@ def build_parser() -> argparse.ArgumentParser:
         description="Precomputation & caching in IR experiments — tooling "
                     "(PyTorch/CUDA port)")
     sub = ap.add_subparsers(dest="command", required=True)
+    from . import cache as _cache
     from . import plan as _plan
     from . import serve as _serve
-    cache = sub.add_parser("cache", help="not ported yet (raises)")
-    cache.add_argument("rest", nargs=argparse.REMAINDER)
-    cache.set_defaults(func=_cmd_cache)
+    _cache.register(sub)
     _plan.register(sub)
     _serve.register(sub)
     return ap

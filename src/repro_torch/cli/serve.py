@@ -1,4 +1,5 @@
-"""``repro_torch.cli serve`` — stand up a serving service and drive it.
+"""``repro_torch.cli serve`` — stand up a serving service (or fleet) and
+drive it.
 
 Counterpart of ``repro.cli.serve``.  Builds a named pipeline from the
 serving registry (``repro_torch.serve.registry``) on ``--device`` (CUDA
@@ -9,19 +10,23 @@ client threads:
 * ``python -m repro_torch.cli serve --pipeline hybrid --scale 1.0``
 * ``python -m repro_torch.cli serve --pipeline bm25 --cache-dir .cache
   --explain --device cpu``
+* ``python -m repro_torch.cli serve --pipeline hybrid --scale 1.0
+  --workers 2 --drain --json stats.json``
 
 Everything routes through the unified serving surface
 (``repro_torch.serve.ServeConfig`` + ``drive_closed_loop``).
-``--workers 1`` (default) serves in-process; ``--workers N``, the
-reference's multi-process fleet, is not ported yet and raises.
-``--drain`` flushes the caches' write-behind queues before the summary.
+``--workers 1`` (default) serves in-process; ``--workers N`` spawns a
+multi-process fleet over the same cache directory, one device a worker
+(``serve/fleet.py``).  ``--drain`` finishes in-flight work and flushes
+the caches (a fleet's workers close their services, refreshing the cache
+manifests on disk) and fails unless every worker exited 0.
 
 With ``--cache-dir`` the planner inserts the §4 cache families per node
 (provenance manifests are validated once, at service start) so a second
 invocation against the same directory starts warm; ``--backend``
 accepts any ``caching.select_backend`` selector — ``memory`` alone
 enables in-process memoization, ``mmap:sqlite`` serves hits from a
-lock-free packed snapshot.
+lock-free packed snapshot that every fleet worker maps.
 """
 from __future__ import annotations
 
@@ -70,22 +75,26 @@ def register(subparsers) -> None:
     p.add_argument("--max-wait-ms", type=_float_or_auto, default=2.0,
                    help="micro-batch flush timeout (ms), or 'auto'")
     p.add_argument("--workers", type=int, default=1,
-                   help="worker PROCESSES (1 = in-process service; N>1, "
-                        "the multi-process fleet, is not ported and "
-                        "raises)")
+                   help="worker PROCESSES (1 = in-process service, N>1 = "
+                        "multi-process fleet over the shared cache dir)")
     p.add_argument("--exec-workers", type=int, default=4,
                    help="executor thread-pool size per service")
     p.add_argument("--cache-dir", default=None,
-                   help="planner cache root (persists across runs)")
+                   help="planner cache root (persists across runs; "
+                        "shared by all fleet workers)")
     p.add_argument("--backend", default=None,
                    help="cache backend selector (caching.select_backend: "
                         "memory/pickle/dbm/sqlite, tiered:<disk>, "
                         "mmap:<disk>)")
     p.add_argument("--no-optimize", action="store_true",
                    help="serve the naive lowered plan (baseline)")
+    p.add_argument("--no-warm-start", action="store_true",
+                   help="fleet workers skip replaying expected traffic "
+                        "through their plan on start")
     p.add_argument("--drain", action="store_true",
                    help="gracefully drain on shutdown: finish in-flight "
-                        "work and flush write-behind queues")
+                        "work, flush write-behind queues, refresh "
+                        "manifests, assert workers exit 0")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="where the encoders and the dense index run "
@@ -107,9 +116,10 @@ def serve_and_drive(*, pipeline: str, scale: float, cutoff: int,
                     backend: Optional[str] = None,
                     optimize: str = "all", seed: int = 0,
                     explain: bool = False, drain: bool = False,
-                    device: Optional[str] = None) -> Dict[str, Any]:
-    """Build the scenario, stand the service up, run the closed loop,
-    return a JSON-able stats record.  Thin kwargs shim over
+                    device: Optional[str] = None,
+                    warm_start: bool = True) -> Dict[str, Any]:
+    """Build the scenario, stand the service (or fleet) up, run the
+    closed loop, return a JSON-able stats record.  Thin kwargs shim over
     :func:`repro_torch.serve.drive_closed_loop`, with the reference's
     flat signature; ``workers`` counts worker *processes*
     (``exec_workers`` is the per-service thread pool)."""
@@ -120,7 +130,7 @@ def serve_and_drive(*, pipeline: str, scale: float, cutoff: int,
                       cache_dir=cache_dir, backend=backend,
                       optimize=optimize, max_batch=max_batch,
                       max_wait_ms=max_wait_ms, exec_workers=exec_workers,
-                      workers=workers,
+                      workers=workers, warm_start=warm_start,
                       device=device)
     return drive_closed_loop(cfg, requests=requests, clients=clients,
                              explain=explain, drain=drain)
@@ -142,7 +152,7 @@ def cmd_serve(args) -> int:
         cache_dir=args.cache_dir, backend=args.backend,
         optimize="none" if args.no_optimize else "all",
         seed=args.seed, explain=args.explain, drain=args.drain,
-        device=args.device)
+        device=args.device, warm_start=not args.no_warm_start)
     explained = record.pop("_explain", None)
     print(f"served {record['requests']} requests from "
           f"{record['clients']} clients in {record['wall_s']}s "
@@ -151,6 +161,15 @@ def cmd_serve(args) -> int:
     print(f"p50={record['p50_ms']:.2f}ms p99={record['p99_ms']:.2f}ms "
           f"hit_rate={record['hit_rate']:.3f} "
           f"occupancy={record['online']['batch_occupancy']:.2f}")
+    if "fleet" in record:
+        fl = record["fleet"]
+        codes = fl["exit_codes"]
+        print(f"fleet: respawns={fl['respawns']} "
+              f"requeued={fl['requeued']} exit_codes="
+              f"{[codes[k] for k in sorted(codes)]}")
+        if args.drain and any(c != 0 for c in codes.values()):
+            print("drain FAILED: nonzero worker exit code")
+            return 1
     if explained is not None:
         print()
         print(explained)

@@ -14,8 +14,10 @@ the runtime's ``cudaGetDriverEntryPoint``.
 
 Threads may reach a kernel's first launch together (the streaming
 executor's pool does): :func:`load` builds and loads each library once
-per process under a lock, and each build writes a temporary file named
-for its process and thread, so no two builds share one.  The wrappers'
+per process under a lock, and each build writes its library and its
+log to temporary files named for its process and thread, each committed
+by ``os.replace``, so no two builds share a file and no reader sees a
+torn one.  The wrappers'
 launch counters are bumped under a lock too (:func:`count_launches`).
 """
 from __future__ import annotations
@@ -97,7 +99,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed to build {srcs[n]} "
                                    f"(exit {proc.returncode}):\n{log}")
-            out[n].with_suffix(".log").write_text(log)
+            tmp_log = tmp.with_suffix(".log")
+            tmp_log.write_text(log)
+            os.replace(tmp_log, out[n].with_suffix(".log"))
             os.replace(tmp, out[n])
     finally:
         for proc, tmp in procs.values():
@@ -105,6 +109,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
                 proc.kill()
                 proc.wait()
             tmp.unlink(missing_ok=True)
+            tmp.with_suffix(".log").unlink(missing_ok=True)
     return out
 
 

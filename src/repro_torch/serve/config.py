@@ -5,14 +5,19 @@ Counterpart of ``repro.serve.config``.  ``repro_torch.cli serve``
 cache-warming job (``caching/warming.py``) describe the same thing — a
 registry scenario, a cache location, micro-batching knobs — so
 :class:`ServeConfig` names that description once and
-:func:`build_service` turns it into a running
-:class:`~repro_torch.serve.service.PipelineService`.
+:func:`build_service` turns it into a running service:
+
+* ``workers=1`` (default) → an in-process
+  :class:`~repro_torch.serve.service.PipelineService`;
+* ``workers=N`` → a :class:`~repro_torch.serve.fleet.FleetService` of N
+  spawned worker processes over the same cache directory.
 
 ``device`` places the scenario's encoders and dense index (CUDA unless
-``"cpu"``).  The reference's ``workers=N`` fleet of worker processes is
-not ported yet: ``workers > 1`` raises ``NotImplementedError``.  The
-config stays a plain picklable dataclass, as the reference's, so the
-fleet can take it across a spawn boundary.
+``"cpu"``); a fleet gives each worker one device (``serve/fleet.py``).
+Fleet workers consume the *same* config (``single()``, ``workers``
+forced to 1) to build their local service, which is what keeps a fleet
+per-qid equal to a single process.  The config is a plain picklable
+dataclass, so it crosses the spawn boundary unchanged.
 """
 from __future__ import annotations
 
@@ -21,15 +26,6 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Union
 
 __all__ = ["ServeConfig", "build_service", "drive_closed_loop"]
-
-#: why ``workers > 1`` is refused: the multi-process fleet is the part of
-#: serving the port has not taken yet
-FLEET_NOT_PORTED = (
-    "ServeConfig(workers > 1): the multi-process serving fleet "
-    "(the reference's serve/fleet.py, spawned workers with one device "
-    "each) is not ported to repro_torch yet (ROADMAP Queue A item 4); "
-    "serve with workers=1")
-
 
 @dataclass
 class ServeConfig:
@@ -77,17 +73,29 @@ class ServeConfig:
     queue_capacity: int = 1024
 
     # -- fleet topology ------------------------------------------------------
-    #: worker *processes*; 1 = in-process service (N>1, the reference's
-    #: FleetService, is not ported: it raises).  The fleet's own knobs
-    #: (``routing``, ``warm_start``, ``warm_budget``) come with it.
+    #: worker *processes*; 1 = in-process service, N>1 = FleetService
     workers: int = 1
+    #: demux routing policy: ``"rr"`` round-robins requests over live
+    #: workers (load-balanced — a zipf-hot qid does not bottleneck one
+    #: worker); ``"qid"`` hashes the qid so repeat traffic for a query
+    #: always lands on the same worker's micro-batcher.  Results are
+    #: reassembled per qid either way, and deterministic pipelines
+    #: make the answers routing-independent.
+    routing: str = "rr"
+    #: fleet workers replay the scenario's expected traffic through
+    #: their plan on start (all hits over a warmed dir), so a respawned
+    #: worker rejoins warm; ignored without a ``cache_dir``
+    warm_start: bool = True
+    #: cap the warm replay to the N most-expected queries
+    warm_budget: Optional[int] = None
 
     def __post_init__(self) -> None:
         from ..caching import select_backend
         if self.workers < 1:
             raise ValueError(f"workers must be >= 1, got {self.workers}")
-        if self.workers > 1:
-            raise NotImplementedError(FLEET_NOT_PORTED)
+        if self.routing not in ("rr", "qid"):
+            raise ValueError(f"routing must be 'rr' or 'qid', "
+                             f"got {self.routing!r}")
         for knob in ("max_batch", "max_wait_ms"):
             v = getattr(self, knob)
             if isinstance(v, str) and v != "auto":
@@ -122,6 +130,10 @@ class ServeConfig:
                     queue_capacity=self.queue_capacity,
                     prefetch=self.prefetch)
 
+    def single(self) -> "ServeConfig":
+        """This config as one worker process sees it (``workers=1``)."""
+        return dataclasses.replace(self, workers=1)
+
     @classmethod
     def coerce(cls, obj: Any) -> "ServeConfig":
         """Accept a ``ServeConfig``, a kwargs dict, or ``None``."""
@@ -140,18 +152,30 @@ def build_service(config: Any = None, *, scenario: Any = None,
     """The one serving factory: a running service from a config.
 
     ``config`` is anything :meth:`ServeConfig.coerce` accepts;
-    ``overrides`` are applied on top (``build_service(max_batch=8)``).
-    Returns an in-process
-    :class:`~repro_torch.serve.service.PipelineService`; ``workers > 1``
-    (the reference's fleet) raises ``NotImplementedError``.
+    ``overrides`` are applied on top (``build_service(workers=4)``).
+    With ``workers == 1`` returns an in-process
+    :class:`~repro_torch.serve.service.PipelineService`; with
+    ``workers > 1`` a :class:`~repro_torch.serve.fleet.FleetService`
+    over spawned worker processes.
 
     ``pipeline`` (a transformer expression) or ``scenario`` (a built
     :class:`~repro_torch.serve.registry.ServeScenario`) short-circuit
-    the registry lookup.
+    the registry lookup for the in-process case; the fleet always
+    rebuilds the scenario from the config's name inside each worker —
+    pipeline objects (and the tensors they hold) do not cross the
+    process boundary.
     """
     cfg = ServeConfig.coerce(config)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    if cfg.workers > 1:
+        if pipeline is not None or scenario is not None:
+            raise ValueError(
+                "a fleet rebuilds its scenario from the config's registry "
+                "name inside each worker process; pass pipeline=/scenario= "
+                "only with workers=1")
+        from .fleet import FleetService
+        return FleetService(cfg)
     from .service import PipelineService
     if pipeline is None:
         if scenario is None:
@@ -164,29 +188,39 @@ def drive_closed_loop(config: Any = None, *, requests: int = 200,
                       clients: int = 4, explain: bool = False,
                       drain: bool = False, scenario: Any = None,
                       **overrides: Any) -> Dict[str, Any]:
-    """Stand the configured service up, run the closed-loop generator,
-    tear down, return a JSON-able stats record — the shared engine of
-    ``repro_torch.cli serve`` and the launcher.  ``drain`` flushes
-    the caches' write-behind queues before the summary (the reference
-    also uses it to check a fleet's exit codes).  ``scenario``, a
-    built :class:`~repro_torch.serve.registry.ServeScenario` of this
-    config, skips rebuilding it, as in :func:`build_service`."""
+    """Stand the configured service (or fleet) up, run the closed-loop
+    generator, tear down, return a JSON-able stats record — the shared
+    engine of ``repro_torch.cli serve`` and the launcher.  A fleet is
+    always drained (its workers' cache totals fold into the record, the
+    drain report lands in ``record["fleet"]``), and ``drain`` adds
+    ``record["drained"]``: whether every worker exited 0.  In one
+    process ``drain`` flushes the caches' write-behind queues before
+    the summary.  ``scenario``, a built
+    :class:`~repro_torch.serve.registry.ServeScenario` of this config,
+    skips rebuilding it here (each fleet worker builds its own)."""
     cfg = ServeConfig.coerce(config)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     from .registry import run_closed_loop
     if scenario is None:
         scenario = cfg.build_scenario()
-    svc = build_service(cfg, scenario=scenario)
+    svc = build_service(cfg, scenario=scenario if cfg.workers == 1 else None)
     explained = None
+    fleet_report = None
     try:
         loop = run_closed_loop(svc, scenario, n_requests=requests,
                                n_clients=clients, seed=cfg.seed)
-        if drain:
-            svc.drain()
-        online = svc.online_stats.as_dict(svc.max_batch)
-        if explain:
-            explained = svc.explain()
+        if cfg.workers > 1:
+            # graceful drain folds the workers' cache totals into
+            # svc.stats before the summary is taken
+            fleet_report = svc.drain()
+            online = fleet_report["online"]
+        else:
+            if drain:
+                svc.drain()
+            online = svc.online_stats.as_dict(svc.max_batch)
+            if explain:
+                explained = svc.explain()
         summary = svc.stats.summary()
         record = {
             "pipeline": cfg.pipeline,
@@ -199,8 +233,13 @@ def drive_closed_loop(config: Any = None, *, requests: int = 200,
             **loop, **summary,
             "online": online,
         }
+        if fleet_report is not None:
+            record["fleet"] = fleet_report
     finally:
         svc.close()
     if explained is not None:
         record["_explain"] = explained
+    if drain and fleet_report is not None:
+        record["drained"] = all(c == 0
+                                for c in fleet_report["exit_codes"].values())
     return record

@@ -9,6 +9,7 @@ import stat
 import sys
 import threading
 import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -133,3 +134,89 @@ def test_launch_counter_loses_no_update_under_threads():
     finally:
         sys.setswitchinterval(interval)
     assert wrapper.launches == 16 * 5000 * 2
+
+
+FAKE_NVCC_LOUD = """#!{python}
+import sys, time
+out = sys.argv[sys.argv.index("-o") + 1]
+time.sleep(0.3)                       # both processes build at once
+sys.stdout.write({log!r})
+with open(out, "wb") as f:
+    f.write(b"fake library")
+"""
+
+#: what the fake compiler prints: large enough that writing it takes
+#: many system calls, so a reader could catch a half-written file
+LOUD_LOG = "ptxas info    : Used 32 registers, 0 bytes spill stores\n" * 40000
+
+BUILD_DRIVER = """
+import json, sys
+from pathlib import Path
+from repro_torch.kernels import _build
+kernels, build, nvcc, expected = sys.argv[1:5]
+_build.KERNELS_DIR = Path(kernels)
+_build.BUILD_DIR = Path(build)
+_build._nvcc = lambda: nvcc
+_build.ctypes.CDLL = lambda path: ("library", path)
+lib = _build.load("toy")
+print(json.dumps({"path": lib[1],
+                  "log_whole": _build.build_log("toy")
+                  == Path(expected).read_text()}))
+"""
+
+
+def test_two_processes_building_one_kernel_both_load_and_the_log_is_whole(
+        tmp_path):
+    """Two processes reach one kernel's first build together (the fleet's
+    workers can): both load the same library, and the ``.log`` beside
+    it is never seen torn — a reader polling it all along finds either
+    no file or the whole log."""
+    import json
+    import subprocess
+    kernels = tmp_path / "kernels"
+    (kernels / "toy" / "csrc").mkdir(parents=True)
+    (kernels / "toy" / "csrc" / "toy.cu").write_text("// toy kernel\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC_LOUD.format(python=sys.executable,
+                                          log=LOUD_LOG))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    build = tmp_path / "build"
+    driver = tmp_path / "driver.py"
+    driver.write_text(BUILD_DRIVER)
+    expected = tmp_path / "expected.log"
+    expected.write_text(LOUD_LOG)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, str(driver), str(kernels), str(build), str(nvcc),
+         str(expected)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env) for _ in range(2)]
+    seen, stop = [], threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            for log in build.glob("*.log") if build.is_dir() else ():
+                if ".so." in log.name:
+                    continue              # a build's own temporary
+                try:
+                    seen.append(log.read_text() == LOUD_LOG)
+                except FileNotFoundError:
+                    pass
+
+    watcher = threading.Thread(target=watch)
+    watcher.start()
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        stop.set()
+        watcher.join()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+    got = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    assert got[0]["path"] == got[1]["path"]
+    assert got[0]["log_whole"] and got[1]["log_whole"]
+    assert seen and all(seen)
+    lib = Path(got[0]["path"])
+    assert lib.read_bytes() == b"fake library"
+    assert sorted(p.name for p in build.iterdir()) == \
+        sorted([lib.name, lib.with_suffix(".log").name])  # no temporaries

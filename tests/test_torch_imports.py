@@ -70,11 +70,15 @@ SERVING_SLICE = ("caching.dataplane", "caching.mmap_tier", "caching.warming",
                  "launch", "launch.serve", "cli", "cli.__main__", "cli.plan",
                  "cli.serve")
 
+#: the fleet, its fault policy and checkpointer, and the cache CLI
+FLEET_SLICE = ("distrib", "distrib.checkpoint", "distrib.fault",
+               "serve.fleet", "cli.cache")
 
-@pytest.mark.parametrize("name", SERVING_SLICE)
+
+@pytest.mark.parametrize("name", SERVING_SLICE + FLEET_SLICE)
 def test_serving_slice_modules_are_listed_and_stand_alone(name):
-    """Each module of the serving slice exists, and importing it alone
-    in a fresh interpreter pulls in neither jax nor repro."""
+    """Each module of the serving and fleet slices exists, and importing
+    it alone in a fresh interpreter pulls in neither jax nor repro."""
     assert f"repro_torch.{name}" in set(_modules())
     script = (
         "import importlib, json, sys\n"

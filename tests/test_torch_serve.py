@@ -5,7 +5,8 @@ under 4 client threads, coalescing, the three flush triggers, cold then
 warm hit rates, the bounded reservoir, thread-safe stats, error
 propagation, every registry scenario (scale 0.02; the reference's
 encoder weights bridged in, scores within 1e-5), the closed-loop
-records, offline warming and the parts that refuse.  Counts are
+records, offline warming, and the fleet and ``cli cache`` that used to
+refuse.  Counts are
 compared where batch composition is fixed by the size trigger or an
 explicit flush, as the reference's tests do."""
 import io
@@ -73,6 +74,21 @@ class _Env:
         return (self.index.bm25(num_results=50) % 10
                 >> self.ir.TextLoader(self.corpus.text_map())
                 >> self.np_reranker())
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_compile_cache_left_as_found():
+    """The reference's process-wide compile cache keys an executable by
+    name and input shape, not by weights (ROADMAP Queue C reference
+    item 1), so the registry's ``mono-ce`` scorers compiled here would
+    serve another file's ``mono-ce`` scorer of the same shape later in
+    this process (``tests/test_system.py``'s).  Drop what this file
+    added."""
+    from repro.caching.compile_cache import default_compile_cache as cc
+    before = set(cc._mem)
+    yield
+    for key in set(cc._mem) - before:
+        cc._mem.pop(key, None)
 
 
 ENVS = {k: _Env(core, ir) for k, (core, ir, _, _) in PKGS.items()}
@@ -477,14 +493,40 @@ def test_warm_scenario_then_service_misses_nothing(tmp_path):
         == (len(frame), len(frame), 0)
 
 
-def test_fleet_and_cache_tooling_refuse_with_their_reasons():
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        tserve.ServeConfig(workers=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="fleet"):
-        tserve.build_service(tserve.ServeConfig(device="cpu"), workers=2)
+def test_fleet_and_cache_tooling_refuse_with_their_reasons(tmp_path,
+                                                           monkeypatch):
+    """What used to refuse now runs: ``ServeConfig(workers=2)`` and
+    ``build_service(workers=2)`` give a spawned fleet whose per-qid
+    results equal the in-process service's, and ``cli cache`` lists and
+    verifies the directory the fleet wrote; ``workers=0`` is still
+    refused."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    cfg = tserve.ServeConfig(workers=2, device="cpu", pipeline="bm25",
+                             scale=0.02, cutoff=5, max_batch=4,
+                             warm_start=False,
+                             cache_dir=str(tmp_path / "c"))
+    scen = cfg.build_scenario()
+    qids = [str(q) for q in scen.topics["qid"].tolist()][:8]
+    queries = scen.topics["query"].tolist()[:8]
+    with tserve.build_service(cfg.single(), scenario=scen) as one:
+        want = [one.submit(q, t) for q, t in zip(qids, queries)]
+        one.flush()
+        want = [f.result(120) for f in want]
+    with tserve.build_service(cfg.single(), workers=2) as fleet:
+        assert isinstance(fleet, tserve.FleetService)
+        got = [f.result(120) for f in [fleet.submit(q, t)
+                                       for q, t in zip(qids, queries)]]
+        assert set(fleet.drain()["exit_codes"].values()) == {0}
+    for g, w in zip(got, want):
+        assert g.equals(w)
     from repro_torch.cli import main
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        main(["cache", "ls", "somewhere"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert main(["cache", "ls", str(tmp_path / "c"), "--json"]) == 0
+    dirs = json.loads(buf.getvalue())["dirs"]
+    assert dirs and all(d["entry_count"] > 0 for d in dirs)
+    with redirect_stdout(io.StringIO()):
+        assert main(["cache", "verify", str(tmp_path / "c")]) == 0
     with pytest.raises(ValueError):
         tserve.ServeConfig(workers=0)
 
@@ -494,17 +536,30 @@ def test_fleet_and_cache_tooling_refuse_with_their_reasons():
                                         ("warm_budget", 3),
                                         ("extra", {"a": 1})])
 def test_fleet_only_knobs_wait_for_the_fleet(knob, value):
-    """The reference's fleet reads these; the port has no fleet, so it
-    takes none of them rather than ignore them."""
-    jserve.ServeConfig(**{knob: value})
-    with pytest.raises(TypeError):
-        tserve.ServeConfig(device="cpu", **{knob: value})
+    """The fleet's knobs came with the fleet: the port takes each one
+    the reference's fleet reads, with its value; ``extra``, which
+    nothing reads, it still refuses rather than ignore."""
+    ref = jserve.ServeConfig(**{knob: value})
+    if knob == "extra":
+        with pytest.raises(TypeError):
+            tserve.ServeConfig(device="cpu", **{knob: value})
+        return
+    got = tserve.ServeConfig(device="cpu", **{knob: value})
+    assert getattr(got, knob) == getattr(ref, knob) == value
+    assert getattr(got.single(), knob) == value
 
 
 def test_cli_serve_has_no_warm_start_flag():
-    from repro_torch.cli import main
-    with pytest.raises(SystemExit), redirect_stderr(io.StringIO()):
-        main(["serve", "--no-warm-start", "--device", "cpu"])
+    """``--no-warm-start`` is back with the fleet: it parses, as in the
+    reference, and turns the fleet's warm start off."""
+    from repro_torch.cli import build_parser
+    args = build_parser().parse_args(["serve", "--no-warm-start",
+                                      "--device", "cpu", "--workers", "2"])
+    assert args.no_warm_start is True and args.workers == 2
+    assert build_parser().parse_args(["serve"]).no_warm_start is False
+    import repro.cli as jcli
+    jargs = jcli.build_parser().parse_args(["serve", "--no-warm-start"])
+    assert jargs.no_warm_start is True
 
 
 def test_cli_serve_and_plan_explain_round_trip(tmp_path):
