@@ -87,7 +87,24 @@ Phases, one output line or more each, the JSON result last:
    slot is respawned and every other worker exits 0.  The workers'
    launches come from their drain reports: the parent's counters cannot
    see another process;
-9. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+9. compile_cache: the dense Experiment and Table 2's setting (1) with
+   the encoders eager, through a fresh CUDA-graph memo cold and warm, and
+   eager again (walls; means equal), the captures and replays per
+   encoder and bucket, each bucket's replayed scores against eager (max
+   difference, bit-identical or not), ``torch.profiler``'s launches of
+   one bucket call eager and replayed, the dense Experiment's device
+   busy share both ways, and two seeds of one MonoScorer config giving
+   two entries and two score vectors;
+10. lm: smollm-360m at full width and depth with random bf16 weights:
+   a prefill of B 1 x S 4,096 (``"wgmma"``), 32 greedy decode steps into
+   a cache of 4,128 keys (``"decode"``, ``sk_valid``), one step at
+   32,768 keys and B 16 (decode_32k's batch of 128 cut to fit the card),
+   each against the port's plain attention at ``LM_TOL``, the prefill in
+   fp32 (``"simt"``), ``flash_attention``'s launches by path, walls and
+   the kernel's share from ``torch.profiler``; the tests' tiny MoE
+   config on the card against the CPU;
+11. the ``kernels`` JSON line (``flash_attention``'s launches are the
+   lm phase's smollm-360m runs; the tiny MoE's are printed apart), then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
@@ -95,6 +112,7 @@ device, or outside a checkout, it exits 1 and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import shutil
@@ -135,31 +153,58 @@ HASH_SWEEP = [(1, 1), (10, 7), (256, 16), (300, 64), (1, 64), (1, 4096),
 BIG_K = 2000
 TABLE2_SETTINGS = [(False, None), (True, None), (True, "cold"),
                    (True, "hot")]
-# (label, B, H, K, Sq, Sk, hd, causal, dtype, path): the reference's
-# flash_attention sweep (tests/test_kernels.py FLASH_SWEEP), the shapes
-# of benchmarks/kernels_bench.py, then smollm-360m's heads
+# (label, B, H, K, Sq, Sk, sk_valid, hd, causal, dtype, path): the
+# reference's flash_attention sweep (tests/test_kernels.py FLASH_SWEEP),
+# the shapes of benchmarks/kernels_bench.py, then smollm-360m's heads
 # (configs/smollm_360m.py) at train_4k's length and a decode_32k step
-# (configs/base.py LM_SHAPES) at the config's batch and at one sequence;
-# the prefill is the main shape.  ``path`` is the kernel path_for must
+# (configs/base.py LM_SHAPES) at the config's batch and at one sequence,
+# and the lm phase's shapes: its first and last decode step into the
+# 4,128-key cache (sk_valid 4,097 and 4,128), the 32k step at B 16, the
+# fp32 prefill, and a prefill into a preallocated cache on the "wgmma"
+# and "simt" paths with a ragged sk_valid.  sk_valid None is Sk; where
+# it is given, keys past it hold NaN (a kernel that read one returns
+# NaN) and the last valid key's values are LAST_KEY_V (one that stopped
+# a key short moves every row that sees it far past the tolerance).
+# The prefill is the main shape.  ``path`` is the kernel path_for must
 # pick
-FLASH_ROWS = [("sweep", 1, 2, 2, 64, 64, 32, True, "float32", "simt"),
-              ("sweep", 2, 4, 2, 128, 128, 64, True, "float32", "simt"),
-              ("sweep", 1, 8, 1, 128, 128, 64, True, "float32", "simt"),
-              ("sweep", 2, 4, 4, 96, 96, 32, True, "float32", "simt"),
-              ("sweep", 1, 2, 2, 64, 256, 64, True, "float32", "simt"),
-              ("sweep", 1, 4, 2, 128, 128, 64, False, "float32", "simt"),
-              ("sweep", 1, 2, 2, 128, 128, 128, True, "bfloat16", "wgmma"),
-              ("kernels_bench", 1, 8, 2, 512, 512, 64, True, "float32",
+FLASH_ROWS = [("sweep", 1, 2, 2, 64, 64, None, 32, True, "float32", "simt"),
+              ("sweep", 2, 4, 2, 128, 128, None, 64, True, "float32",
                "simt"),
-              ("kernels_bench", 2, 8, 8, 1024, 1024, 64, True, "float32",
+              ("sweep", 1, 8, 1, 128, 128, None, 64, True, "float32",
                "simt"),
-              ("smollm-360m prefill", 1, 15, 5, 4096, 4096, 64, True,
+              ("sweep", 2, 4, 4, 96, 96, None, 32, True, "float32", "simt"),
+              ("sweep", 1, 2, 2, 64, 256, None, 64, True, "float32", "simt"),
+              ("sweep", 1, 4, 2, 128, 128, None, 64, False, "float32",
+               "simt"),
+              ("sweep", 1, 2, 2, 128, 128, None, 128, True, "bfloat16",
+               "wgmma"),
+              ("kernels_bench", 1, 8, 2, 512, 512, None, 64, True, "float32",
+               "simt"),
+              ("kernels_bench", 2, 8, 8, 1024, 1024, None, 64, True,
+               "float32", "simt"),
+              ("smollm-360m prefill", 1, 15, 5, 4096, 4096, None, 64, True,
                "bfloat16", "wgmma"),
-              ("smollm-360m decode", 128, 15, 5, 1, 32768, 64, True,
+              ("smollm-360m decode", 128, 15, 5, 1, 32768, None, 64, True,
                "bfloat16", "decode"),
-              ("smollm-360m decode B=1", 1, 15, 5, 1, 32768, 64, True,
-               "bfloat16", "decode")]
+              ("smollm-360m decode B=1", 1, 15, 5, 1, 32768, None, 64, True,
+               "bfloat16", "decode"),
+              ("lm phase first decode step", 1, 15, 5, 1, 4128, 4097, 64,
+               True, "bfloat16", "decode"),
+              ("lm phase last decode step", 1, 15, 5, 1, 4128, 4128, 64,
+               True, "bfloat16", "decode"),
+              ("lm phase decode_32k B=16", 16, 15, 5, 1, 32768, 32768, 64,
+               True, "bfloat16", "decode"),
+              ("lm phase prefill f32", 1, 15, 5, 4096, 4096, None, 64, True,
+               "float32", "simt"),
+              ("prefill into a cache", 1, 15, 5, 4096, 4128, 4100, 64, True,
+               "bfloat16", "wgmma"),
+              ("prefill into a cache f32", 1, 15, 5, 4096, 4128, 4100, 64,
+               True, "float32", "simt")]
 FLASH_MAIN = "smollm-360m prefill"
+# the values of the last valid key of a FLASH_ROWS row that gives
+# sk_valid: exact in bf16, large enough that a kernel one key short
+# fails, small enough that one skipping a tile of 64 keys fails too
+LAST_KEY_V = 64.0
 # (label, V, d, B, L, weights, combiner, dtype): the reference's
 # embedding_bag sweep (EB_SWEEP), kernels_bench.py's shapes, then MIND's
 # table (configs/mind.py) at serve_p99's batch with hist_len bags and
@@ -663,9 +708,9 @@ def flash_bound(B, H, K, Sq, Sk, hd, causal, dtype):
 
 
 def flash_within(got, want, dt, path, q, k, v, causal):
-    """(max abs err, largest share of the bound used, elements beyond it)
-    of ``got`` against ``want``: TOL_FLASH[dt] on the fp32-P paths,
-    ``bf16p_excess`` on "wgmma"."""
+    """(max abs err, largest share of the bound used, elements beyond it
+    or not finite) of ``got`` against ``want``: TOL_FLASH[dt] on the
+    fp32-P paths, ``bf16p_excess`` on "wgmma"."""
     from repro_torch.kernels.flash_attention.ref import bf16p_excess
     diff = (got.float() - want.float()).abs()
     if path == "wgmma":
@@ -673,7 +718,7 @@ def flash_within(got, want, dt, path, q, k, v, causal):
     else:
         rtol, atol = TOL_FLASH[dt]
         share = diff / (atol + rtol * want.float().abs())
-    return float(diff.max()), float(share.max()), int((share > 1).sum())
+    return float(diff.max()), float(share.max()), int((~(share <= 1)).sum())
 
 
 def attention_skipping_tile(torch, q, k, v, causal, lo):
@@ -696,8 +741,13 @@ def attention_skipping_tile(torch, q, k, v, causal, lo):
 
 def check_flash_attention(torch, card: str) -> dict:
     """flash_attention_op at FLASH_ROWS against the plain version, each
-    row on the path it names, with the kernel, plain and SDPA times.
-    Returns the main row's entry."""
+    row on the path it names, with the kernel, plain and SDPA times.  A
+    row that gives sk_valid is checked with NaN keys past it and
+    LAST_KEY_V at its last valid key, against the plain version of the
+    first sk_valid keys, and shows that a kernel one key short fails;
+    these rows and smollm-360m's show that one skipping a tile fails.
+    Returns the main row's entry (the prefill: its ms, bound and error
+    are this row's; its launches are the lm phase's)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (attention_ref,
@@ -707,39 +757,62 @@ def check_flash_attention(torch, card: str) -> dict:
                                                             path_for)
     gen = torch.Generator(device="cuda").manual_seed(4)
     entry = None
-    for label, B, H, K, Sq, Sk, hd, causal, dt, path in FLASH_ROWS:
+    for label, B, H, K, Sq, Sk, sk_valid, hd, causal, dt, path in FLASH_ROWS:
         dtype = getattr(torch, dt)
-        if path_for(dtype, B, H, K, Sq, Sk, hd, causal) != path:
+        sv = Sk if sk_valid is None else sk_valid
+        if path_for(dtype, B, H, K, Sq, sv, hd, causal) != path:
             raise AssertionError(f"flash_attention {label}: path_for picks "
-                                 f"{path_for(dtype, B, H, K, Sq, Sk, hd, causal)}"
+                                 f"{path_for(dtype, B, H, K, Sq, sv, hd, causal)}"
                                  f", not {path}")
-        expect = 2 if path == "decode" and decode_splits(B, K, Sk)[0] > 1 \
+        expect = 2 if path == "decode" and decode_splits(B, K, sv)[0] > 1 \
             else 1
         q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=dtype)
                    for s in ((B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd)))
+        if sk_valid is not None:
+            k[:, :, sv:] = float("nan")
+            v[:, :, sv:] = float("nan")
+            v[:, :, sv - 1] = LAST_KEY_V
         flash_attention.paths.clear()
-        got, n = driven(torch, lambda: flash_attention_op(q, k, v,
-                                                          causal=causal),
-                        "flash_attention", expect)
+        got, n = driven(torch, lambda: flash_attention_op(
+            q, k, v, causal=causal, sk_valid=sk_valid), "flash_attention",
+            expect)
         if dict(flash_attention.paths) != {path: 1}:
             raise AssertionError(f"flash_attention {label}: paths "
                                  f"{dict(flash_attention.paths)}, expected "
                                  f"one call on {path}")
-        want = attention_ref(q, k, v, causal=causal)
-        err, share, beyond = flash_within(got, want, dt, path, q, k, v,
+        # the plain version of the first sv keys; its default q_offset
+        # (sv - Sq) is the kernel's
+        ks, vs = (k, v) if sv == Sk else \
+            (k[:, :, :sv].contiguous(), v[:, :, :sv].contiguous())
+        want = attention_ref(q, ks, vs, causal=causal)
+        err, share, beyond = flash_within(got, want, dt, path, q, ks, vs,
                                           causal)
         bound_name = "bf16p bound" if path == "wgmma" \
             else f"(rtol, atol) {TOL_FLASH[dt]}"
         if beyond:
             raise AssertionError(f"flash_attention {label} "
-                                 f"{(B, H, K, Sq, Sk, hd)} {dt}: {beyond} "
-                                 f"elements beyond the {bound_name}, "
-                                 f"max_abs_err {err}")
-        if label.startswith("smollm"):
-            lo = Sk // 2 // 64 * 64
+                                 f"{(B, H, K, Sq, Sk, sk_valid, hd)} {dt}: "
+                                 f"{beyond} elements beyond the {bound_name}"
+                                 f" or not finite, max_abs_err {err}")
+        if sk_valid is not None:
+            short = attention_ref(q, ks[:, :, :sv - 1], vs[:, :, :sv - 1],
+                                  causal=causal, q_offset=sv - Sq)
+            s_err, _, s_beyond = flash_within(short, want, dt, path, q, ks,
+                                              vs, causal)
+            if not s_beyond:
+                raise AssertionError(f"flash_attention {label}: the "
+                                     f"{bound_name} passes an output that "
+                                     f"stops at key {sv - 2}")
+            log(f"kernels: flash_attention {label}: stopping one key short "
+                f"of sk_valid {sv} would fail the {bound_name} at "
+                f"{s_beyond} of {want.numel()} elements (max_abs_err "
+                f"{s_err:.3g}); a key past it is NaN")
+            del short
+        if label.startswith("smollm") or sk_valid is not None:
+            lo = sv // 2 // 64 * 64
             d_err, d_share, d_beyond = flash_within(
-                attention_skipping_tile(torch, q, k, v, causal, lo),
-                want, dt, path, q, k, v, causal)
+                attention_skipping_tile(torch, q, ks, vs, causal, lo),
+                want, dt, path, q, ks, vs, causal)
             if not d_beyond:
                 raise AssertionError(f"flash_attention {label}: the "
                                      f"{bound_name} passes an output that "
@@ -749,22 +822,29 @@ def check_flash_attention(torch, card: str) -> dict:
                 f"{want.numel()} elements (max_abs_err {d_err:.3g}, "
                 f"{d_share:.3g}x the bound); the kernel used {share:.3g}x "
                 f"of it")
-        del got, want
+        del got, want, ks, vs
+        if sk_valid is not None:                  # finite again for timing
+            k[:, :, sv:].normal_(generator=gen)
+            v[:, :, sv:].normal_(generator=gen)
         # SDPA's causal mask is aligned top-left: is_causal only where
-        # Sq = Sk; an explicit mask where Sq < Sk and some key is masked
-        keep = (torch.arange(Sk, device="cuda")[None, :]
-                <= torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq))
-        mask = keep if causal and Sq != Sk and not bool(keep.all()) \
-            else None
-        is_causal = causal and Sq == Sk
-        ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=causal))
-        plain_ms = time_ms(torch, lambda: attention_ref(q, k, v,
-                                                        causal=causal))
+        # Sq = Sk = sv; an explicit mask where some key is masked
+        j = torch.arange(Sk, device="cuda")[None, :]
+        keep = j < sv
+        if causal:
+            keep = keep & (j <= torch.arange(Sq, device="cuda")[:, None]
+                           + (sv - Sq))
+        is_causal = causal and Sq == Sk == sv
+        mask = None if is_causal or bool(keep.all()) else keep
+        ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=causal,
+                                                    sk_valid=sk_valid))
+        plain_ms = time_ms(torch, lambda: attention_ref(
+            q, k, v, causal=causal, sk_valid=sk_valid))
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True))
-        bound_ms, bound_by = flash_bound(B, H, K, Sq, Sk, hd, causal, dt)
+        bound_ms, bound_by = flash_bound(B, H, K, Sq, sv, hd, causal, dt)
         log(f"kernels: flash_attention {label} B={B} H={H} K={K} Sq={Sq} "
-            f"Sk={Sk} hd={hd} {'causal' if causal else 'full'} {dt}: path "
+            f"Sk={Sk} sk_valid={sv} hd={hd} "
+            f"{'causal' if causal else 'full'} {dt}: path "
             f"{path}, max_abs_err {err:.3g} ({bound_name}, {share:.3g}x "
             f"used), {n} launch{'es' if n > 1 else ''}; kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
@@ -1745,6 +1825,527 @@ def run_fleet(torch, card: str, base=None) -> dict:
     return dict(launches)
 
 
+class EagerMemo:
+    """Stands in for the process-wide ``CompileCache`` in A/B runs: every
+    call runs the function eagerly, as the encoders did before the
+    memo."""
+
+    def call(self, name, fn, *args, weight_source=None, **kwargs):
+        import torch
+        with torch.inference_mode():
+            return fn(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def memo_in_place(memo):
+    """``memo`` as the encoders' process-wide compile cache meanwhile."""
+    import repro_torch.caching.compile_cache as cc
+    prev = cc.default_compile_cache
+    cc.default_compile_cache = memo
+    try:
+        yield memo
+    finally:
+        cc.default_compile_cache = prev
+
+
+def launches_per_call(torch, fn) -> dict:
+    """``torch.profiler``'s count of one call of ``fn``: kernel launches
+    the host issued, graph launches, and kernels that ran on the
+    device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"host_kernel_launches": 0, "graph_launches": 0,
+           "device_kernels": 0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if "memcpy" not in e.key.lower() and "memset" not in e.key.lower():
+                out["device_kernels"] += e.count
+        elif "LaunchKernel" in e.key:
+            out["host_kernel_launches"] += e.count
+        elif "GraphLaunch" in e.key:
+            out["graph_launches"] += e.count
+    return out
+
+
+def busy_share(torch, fn) -> tuple:
+    """(wall s, device-busy s, share) of one call of ``fn`` under
+    ``torch.profiler``: the device-side kernels' time over the wall, as
+    ``tools/torch_profile_main_path.py`` counts it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    dev = sum(float(getattr(e, "self_device_time_total", 0.0))
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA) / 1e6
+    return wall, dev, dev / wall
+
+
+def run_compile_cache(torch, card: str, mp, main_res, t2_base) -> dict:
+    """The encoders with and without the CUDA-graph memo, in one call:
+    the dense Experiment and Table 2's setting (1) eager, through a fresh
+    memo cold (captures), then warm (replays only) and eager in turns,
+    four runs each; each run's means and per-query values equal the
+    earlier phases' (1e-6); the captures and replays per encoder and
+    bucket; each bucket's scores replayed against eager, with the
+    largest difference and whether they are bit-identical;
+    ``torch.profiler``'s launches of one bucket call eager and replayed,
+    and its host time to the scores;
+    the dense Experiment's device busy share both ways; two seeds of one
+    MonoScorer config giving two entries and two score vectors.
+    Returns the memo's counts."""
+    import numpy as np
+
+    from repro_torch.caching import CompileCache
+    from repro_torch.core import Experiment
+    from repro_torch.models.cross_encoder import EncoderConfig, MonoScorer
+
+    names = [f"k={k}" for k in CUTS]
+
+    def table2():
+        systems = [mp.index.bm25(num_results=max(CUTS)) % k >> mp.tl
+                   >> mp.mono % 10 >> mp.duo for k in CUTS]
+        return Experiment(systems, mp.topics, mp.qrels, MEASURES,
+                          names=names)
+
+    memo = CompileCache()
+    runs = collections.defaultdict(list)
+    # eager, then the memo cold, then warm and eager in turns (host walls
+    # on a shared host spread; the turns put both in each stretch)
+    for label in ("eager", "memo cold") + ("memo warm", "eager",
+                                           "eager", "memo warm") * 2:
+        stand_in = EagerMemo() if label == "eager" else memo
+        with memo_in_place(stand_in):
+            row = {}
+            for what, fn, base, nm in (("dense", lambda: mp.run("cuda"),
+                                        main_res, NAMES),
+                                       ("table2 (1)", table2, t2_base,
+                                        names)):
+                t = time.perf_counter()
+                res = fn()
+                torch.cuda.synchronize()
+                row[what] = time.perf_counter() - t
+                same_results(f"compile_cache {label} {what}", res, base, nm)
+            runs[label].append(row)
+        log("compile_cache: " + json.dumps(
+            {"run": label, **{f"{k}_wall_s": round(v, 3)
+                              for k, v in row.items()},
+             "captures": memo.stats.compile_misses,
+             "replays": sum(c for _, c in memo.entries()),
+             "capture_s": round(memo.stats.compile_time_s, 3)}))
+        if label == "memo cold":
+            captured = memo.stats.compile_misses
+    if memo.stats.compile_misses != captured or captured < 1:
+        raise AssertionError(f"compile_cache: the warm run captured "
+                             f"{memo.stats.compile_misses - captured} graphs")
+    log(f"compile_cache: every memo run's means and per-query values equal "
+        f"the eager runs' and the earlier phases' to 1e-6; median walls, s: "
+        + json.dumps({label: {what: round(statistics.median(
+            r[what] for r in rows), 3) for what in rows[0]}
+            for label, rows in runs.items()}) + f"; {card}")
+    per = collections.defaultdict(list)
+    for key, calls in memo.entries():
+        per[key[0]].append((key[1][0][0][1][0], calls))
+    for name, rows in sorted(per.items()):
+        log(f"compile_cache: {name}: (bucket, replays) "
+            f"{sorted(rows)}; {len(rows)} captures")
+
+    # each bucket's scores, replayed against eager, on the main path's
+    # pairs (its queries against its corpus's texts)
+    texts = list(mp.tl.text_map.values())
+    queries = mp.topics["query"].tolist()
+    worst, identical = 0.0, True
+    for b in (8, 16, 32, 64, 128, 256, 512, 1024):
+        qs = [queries[i % len(queries)] for i in range(b)]
+        ts = [texts[(7 * i) % len(texts)] for i in range(b)]
+        for scorer in (mp.mono, mp.duo):
+            with memo_in_place(EagerMemo()):
+                eager = scorer._score_pairs(qs, ts)
+            with memo_in_place(memo):
+                replay = scorer._score_pairs(qs, ts)
+            worst = max(worst, float(np.abs(eager - replay).max()))
+            identical &= bool(np.array_equal(eager, replay))
+    dense_texts = texts[:300]
+    with memo_in_place(EagerMemo()):
+        e = mp.dense_enc.encode(dense_texts)
+    with memo_in_place(memo):
+        r = mp.dense_enc.encode(dense_texts)
+    torch.cuda.synchronize()
+    d_worst = float((e - r).abs().max())
+    d_identical = bool(torch.equal(e, r))
+    if worst > 1e-5 or d_worst > 1e-5:
+        raise AssertionError(f"compile_cache: replayed scores differ from "
+                             f"eager by {worst} (Mono, Duo) and {d_worst} "
+                             f"(dense)")
+    log(f"compile_cache: replay against eager at buckets 8-1,024 (Mono and "
+        f"Duo) and the dense encoder's 256 + 44 (padded to 48) texts: max "
+        f"abs diff {worst:.3g} / {d_worst:.3g}, bit-identical "
+        f"{identical} / {d_identical}")
+
+    # launches of one bucket call, eager and replayed
+    for b in (8, 128, 1024):
+        qs = [queries[i % len(queries)] for i in range(b)]
+        ts = [texts[(3 * i) % len(texts)] for i in range(b)]
+        toks = np.stack([mp.mono.tokenizer.encode_pair(q, t, 64)
+                         for q, t in zip(qs, ts)])
+        counts = {}
+        for label, stand_in in (("eager", EagerMemo()), ("replay", memo),
+                                ("eager", EagerMemo()), ("replay", memo)):
+            with memo_in_place(stand_in):
+                row = counts.setdefault(label, {**launches_per_call(
+                    torch, lambda: mp.mono._score_tokens(toks)),
+                    "call_ms": []})
+                times = []
+                for _ in range(20):
+                    t = time.perf_counter()
+                    mp.mono._score_tokens(toks)     # ends in a copy out
+                    times.append(time.perf_counter() - t)
+                row["call_ms"].append(round(statistics.median(times) * 1e3,
+                                            4))
+        log(f"compile_cache: Mono bucket {b}, one call (profiler counts; "
+            f"host ms to the scores on the host, median of 20, two "
+            f"turns): " + json.dumps(counts) + f"; {card}")
+
+    # the dense Experiment's device busy share, eager and replayed
+    shares = {}
+    for label, stand_in in (("eager", EagerMemo()), ("memo", memo),
+                            ("memo", memo), ("eager", EagerMemo())):
+        with memo_in_place(stand_in):
+            shares.setdefault(label, []).append(
+                busy_share(torch, lambda: mp.run("cuda")))
+    log("compile_cache: dense Experiment under torch.profiler, (wall s, "
+        "device-busy s, share): " + json.dumps(
+            {k: [[round(x, 4) for x in v] for v in vs]
+             for k, vs in shares.items()}) + f"; {card}")
+
+    # two seeds of one MonoScorer config: two entries, two score vectors
+    mono3 = MonoScorer(EncoderConfig(), seed=3)
+    qs, ts = queries[:8], texts[:8]
+    with memo_in_place(memo):
+        before = len([k for k, _ in memo.entries()
+                      if k[0] == "MonoScorer:mono-ce"
+                      and k[1][0][0][1][0] == 8])
+        s0, s3 = mp.mono._score_pairs(qs, ts), mono3._score_pairs(qs, ts)
+        after = [k for k, _ in memo.entries()
+                 if k[0] == "MonoScorer:mono-ce" and k[1][0][0][1][0] == 8]
+    diff = float(np.abs(s0 - s3).max())
+    if len(after) != before + 1 or before != 1 or diff <= 1e-3:
+        raise AssertionError(f"compile_cache: two seeds gave {len(after)} "
+                             f"entries at bucket 8 and scores {diff} apart")
+    log(f"compile_cache: MonoScorer seeds 0 and 3 in one process: "
+        f"{len(after)} entries at bucket 8 (weight sources "
+        f"{sorted(str(k[3][1:]) for k in after)}), scores differ by up to "
+        f"{diff:.3g}")
+    return {"captures": memo.stats.compile_misses,
+            "replays": sum(c for _, c in memo.entries())}
+
+
+# smollm-360m's lm phase: train_4k's length, 32 decode steps after it,
+# and one step at decode_32k's cache length at B 16 (decode_32k's
+# global_batch 128 would need a 172 GB cache: more than the card's 80 GB)
+LM_PREFILL, LM_STEPS, LM_32K, LM_32K_BATCH = 4096, 32, 32768, 16
+# logits of the kernel path against the port's plain attention on the
+# card, as ||flash - plain||_2 / ||plain||_2: bf16 rounds the plain path's
+# scores, probabilities and PV product to bf16 (2**-8 each) where the
+# kernels keep them in fp32, and 32 layers carry the difference forward:
+# each path lies ~2 % from an fp32 run of the same weights (the port on
+# the CPU, S 256), so 2**-4 for their distance; a wiring fault (a decode
+# step whose heads read the wrong KV heads) lands past it, as the phase
+# shows.
+# In fp32 both sum in fp32 in other orders, so 1e-4
+LM_TOL = {"bfloat16": 2 ** -4, "float32": 1e-4}
+# the tests' tiny MoE config on the card against the CPU (fp32)
+LM_MOE_ATOL = 1e-4
+
+
+def conditioned(params: dict, cfg) -> dict:
+    """The attention projections of random ``params`` rescaled in place
+    to the fan-in of the dimensions they contract (D for wq, wk and wv,
+    H·hd for wo).  The reference's init, which the port copies, takes
+    the fan-in from a spec's second-to-last axis: H or K for these, hd
+    for wo.  A random smollm-360m drawn so has attention scores of ~100,
+    its softmax saturates, and bf16 rounding of the scores decides which
+    key wins: no two bf16 paths then agree with each other or with fp32
+    (relative logit error ~1.3, the port on the CPU and on the card)."""
+    import torch
+    layers = params["layers"]
+    with torch.no_grad():
+        for name in ("wq", "wk", "wv"):
+            layers[name].mul_(math.sqrt(layers[name].shape[-2]
+                                        / cfg.d_model))
+        layers["wo"].mul_(1 / math.sqrt(cfg.n_heads))
+    return params
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def lm_counts(torch, fn):
+    """(``fn()``, launches, calls by path) of ``flash_attention`` in it,
+    every kernel's count set to 0 just before and read just after;
+    raises if another kernel launched."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    flash_attention.paths.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    others = {n: w.launches for n, w in wrappers.items()
+              if n != "flash_attention" and w.launches}
+    if others:
+        raise AssertionError(f"lm: other kernels launched: {others}")
+    return out, flash_attention.launches, dict(flash_attention.paths)
+
+
+def kernel_share(torch, fn) -> tuple:
+    """(wall ms, device ms, flash_attention's device ms) of one call of
+    ``fn``: the wall the median of 5 calls, each ended by a synchronise;
+    the device times from one more under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    wall = statistics.median(walls[1:])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = flash = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = float(getattr(e, "self_device_time_total", 0.0))
+            dev += us
+            if any(n in e.key for n in ("wgmma_kernel", "decode_kernel",
+                                        "combine_kernel",
+                                        "flash_attention_kernel")):
+                flash += us
+    return wall * 1e3, dev / 1e3, flash / 1e3
+
+
+def run_lm(torch, card: str) -> dict:
+    """smollm-360m at full width and depth, random bf16 weights from
+    ``torch.Generator``: a prefill of B 1 x S 4,096 (the "wgmma" path),
+    32 greedy decode steps into a cache of 4,096 + 32 keys (the "decode"
+    path with sk_valid), then one decode step at 32,768 keys and B 16;
+    each step's logits against the same step through the port's plain
+    attention (LM_TOL), the prefill again in fp32 on the "simt" path;
+    launches per prefill and decode step by path, walls and the
+    kernel's share from ``torch.profiler``; then the tests' tiny MoE
+    config on the card against the CPU.  Returns ``flash_attention``'s
+    launches in the smollm-360m runs (the bf16 prefill, the decode
+    steps, the 32k step and the fp32 prefill) and, apart, in the tiny
+    MoE's."""
+    from dataclasses import replace
+
+    from repro_torch.configs.smollm_360m import CONFIG
+    from repro_torch.models import lm
+
+    t = time.perf_counter()
+    params, source = lm.load_params(CONFIG, seed=0)
+    conditioned(params, CONFIG)
+    torch.cuda.synchronize()
+    log(f"lm: smollm-360m {lm.num_params(CONFIG):,} params, bf16, weights "
+        f"{source} in {time.perf_counter() - t:.1f} s")
+    gen = torch.Generator().manual_seed(11)
+    V = CONFIG.vocab_size
+    tokens = torch.randint(0, V, (1, LM_PREFILL), generator=gen).cuda()
+    max_len = LM_PREFILL + LM_STEPS
+    launches = 0
+
+    # prefill, B 1 x S 4,096
+    (logits, cache), n, paths = lm_counts(torch, lambda: lm.prefill(
+        params, tokens, CONFIG, max_len=max_len))
+    if paths != {"wgmma": CONFIG.n_layers} or n != CONFIG.n_layers:
+        raise AssertionError(f"lm: prefill launched {n} on {paths}")
+    launches += n
+    plain, _ = lm.prefill(params, tokens, CONFIG, max_len=max_len,
+                          attention="plain")
+    err = rel_err(logits, plain)
+    if not err <= LM_TOL["bfloat16"]:
+        raise AssertionError(f"lm: prefill logits {err} from plain")
+    pre_ms, pre_dev, pre_flash = kernel_share(torch, lambda: lm.prefill(
+        params, tokens, CONFIG, max_len=max_len))
+    log(f"lm: prefill B=1 S={LM_PREFILL}: flash_attention {n} launches "
+        f"{paths}; logits vs plain attention rel err {err:.3g} (tol "
+        f"{LM_TOL['bfloat16']:.3g}), max abs {float((logits - plain).abs().max()):.3g}"
+        f" of max |logit| {float(plain.abs().max()):.3g}; wall "
+        f"{pre_ms:.2f} ms, device {pre_dev:.2f} ms, flash_attention "
+        f"{pre_flash:.3f} ms ({100 * pre_flash / pre_dev:.2f} % of device); "
+        f"{card}")
+    del plain
+
+    # a wiring fault for scale: a decode step whose query heads read the
+    # wrong KV heads (rolled by one).  A fault of a single key does not
+    # show at this level (one key of 4,097 moves a logit by ~1/4,097);
+    # the kernel rows above hold each kernel key by key
+    fault_cache = {k: v.clone() for k, v in cache.items()}
+    fault_tok = logits[:, :V].argmax(-1)
+    plain, _ = lm.decode_one(params, fault_cache, fault_tok, LM_PREFILL,
+                             CONFIG, attention="plain")
+    op = lm.flash_attention_op
+    lm.flash_attention_op = lambda q, k, v, **kw: op(
+        q, k.roll(1, 1).contiguous(), v.roll(1, 1).contiguous(), **kw)
+    try:
+        faulty, _ = lm.decode_one(params, fault_cache, fault_tok,
+                                  LM_PREFILL, CONFIG)
+    finally:
+        lm.flash_attention_op = op
+    fault_err = rel_err(faulty, plain)
+    if fault_err <= LM_TOL["bfloat16"]:
+        raise AssertionError(f"lm: a decode step reading the wrong KV "
+                             f"heads is within the tolerance ({fault_err})")
+    del fault_cache, faulty, plain
+
+    # 32 greedy decode steps into the 4,128-key cache
+    errs, step_paths, step_launches, agree = [], collections.Counter(), 0, 0
+    tok = logits[:, :V].argmax(-1)
+    for i in range(LM_STEPS):
+        pos = LM_PREFILL + i
+        plain, _ = lm.decode_one(params, cache, tok, pos, CONFIG,
+                                 attention="plain")
+        (logits, _), n, paths = lm_counts(torch, lambda: lm.decode_one(
+            params, cache, tok, pos, CONFIG))
+        if sum(paths.values()) != CONFIG.n_layers or set(paths) != {"decode"}:
+            raise AssertionError(f"lm: decode step {i} took {paths}")
+        step_paths.update(paths)
+        step_launches += n
+        errs.append(rel_err(logits, plain))
+        agree += int(torch.equal(logits[:, :V].argmax(-1),
+                                 plain[:, :V].argmax(-1)))
+        tok = logits[:, :V].argmax(-1)
+    launches += step_launches
+    if not max(errs) <= LM_TOL["bfloat16"]:
+        raise AssertionError(f"lm: decode logits {max(errs)} from plain")
+    pos = LM_PREFILL + LM_STEPS - 1
+    dec_ms, dec_dev, dec_flash = kernel_share(torch, lambda: lm.decode_one(
+        params, cache, tok, pos, CONFIG))
+    from repro_torch.kernels.flash_attention.kernel import decode_splits
+    log(f"lm: {LM_STEPS} greedy decode steps, cache {max_len} keys, "
+        f"sk_valid {LM_PREFILL + 1}-{max_len}: flash_attention "
+        f"{step_launches // LM_STEPS} launches a step ({CONFIG.n_layers} "
+        f"calls, {decode_splits(1, 5, LM_PREFILL + 1)[0]} splits each, "
+        f"decode + combine) {dict(step_paths)}; logits vs plain rel err "
+        f"max {max(errs):.3g} mean {statistics.mean(errs):.3g} (tol "
+        f"{LM_TOL['bfloat16']:.3g}; a step whose heads read the wrong KV "
+        f"heads: {fault_err:.3g}); greedy "
+        f"token equal in {agree}/{LM_STEPS} steps; a step's wall "
+        f"{dec_ms:.2f} ms, device {dec_dev:.2f} ms, flash_attention "
+        f"{dec_flash:.3f} ms ({100 * dec_flash / dec_dev:.2f} % of device); "
+        f"{card}")
+    del cache, plain
+
+    # one step at decode_32k's cache length, B 16
+    B = LM_32K_BATCH
+    cache = lm.init_cache(CONFIG, B, LM_32K)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for name in ("k", "v"):
+        for li in range(CONFIG.n_layers):
+            cache[name][li].normal_(generator=g)
+    tok = torch.randint(0, V, (B,), generator=gen).cuda()
+    pos = LM_32K - 1
+    plain, _ = lm.decode_one(params, cache, tok, pos, CONFIG,
+                             attention="plain")
+    (logits, _), n, paths = lm_counts(torch, lambda: lm.decode_one(
+        params, cache, tok, pos, CONFIG))
+    if paths != {"decode": CONFIG.n_layers}:
+        raise AssertionError(f"lm: the 32k step took {paths}")
+    launches += n
+    err = rel_err(logits, plain)
+    if not err <= LM_TOL["bfloat16"]:
+        raise AssertionError(f"lm: 32k decode logits {err} from plain")
+    k_ms, k_dev, k_flash = kernel_share(torch, lambda: lm.decode_one(
+        params, cache, tok, pos, CONFIG))
+    log(f"lm: decode step at {LM_32K} keys, B={B} (decode_32k's batch 128 "
+        f"cut to {B}: its KV cache would take "
+        f"{2 * CONFIG.n_layers * 128 * LM_32K * 5 * 64 * 2 / 1e9:.0f} GB, "
+        f"this one {2 * cache['k'].numel() * 2 / 1e9:.1f} GB): "
+        f"flash_attention {n} launches {paths}; logits vs plain rel err "
+        f"{err:.3g}; wall {k_ms:.2f} ms, device {k_dev:.2f} ms, "
+        f"flash_attention {k_flash:.3f} ms ({100 * k_flash / k_dev:.2f} % of "
+        f"device); {card}")
+    del cache, plain, logits
+    torch.cuda.empty_cache()
+
+    # the prefill in fp32: the "simt" path
+    cfg32 = replace(CONFIG, dtype=torch.float32)
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.float())
+           for k, v in params.items()}
+    del params
+    (logits, _), n, paths = lm_counts(torch, lambda: lm.prefill(
+        p32, tokens, cfg32))
+    if paths != {"simt": CONFIG.n_layers}:
+        raise AssertionError(f"lm: the fp32 prefill took {paths}")
+    launches += n
+    plain, _ = lm.prefill(p32, tokens, cfg32, attention="plain")
+    err = rel_err(logits, plain)
+    if not err <= LM_TOL["float32"]:
+        raise AssertionError(f"lm: fp32 prefill logits {err} from plain")
+    log(f"lm: fp32 prefill B=1 S={LM_PREFILL}: flash_attention {n} launches "
+        f"{paths}; logits vs plain rel err {err:.3g} (tol "
+        f"{LM_TOL['float32']:.3g}), max abs "
+        f"{float((logits - plain).abs().max()):.3g}")
+    del p32, logits, plain
+    torch.cuda.empty_cache()
+
+    # the tests' tiny MoE config, card against CPU, both dispatches
+    moe_launches = 0
+    for groups in (0, 2):
+        tiny = lm.LMConfig(name="tiny", n_layers=2, d_model=64, n_heads=4,
+                           n_kv_heads=2, d_ff=128, vocab_size=512,
+                           vocab_pad_multiple=128, dtype=torch.float32,
+                           n_experts=8, top_k=2, dispatch_groups=groups)
+        cpu, _ = lm.load_params(tiny, seed=5, device="cpu")
+        dev = {k: ({kk: vv.cuda() for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.cuda())
+               for k, v in cpu.items()}
+        toks = torch.randint(0, 512, (2, 24), generator=gen)
+        want, want_aux = lm.forward(cpu, toks, tiny)
+        (got, got_aux), n, _ = lm_counts(torch, lambda: lm.forward(
+            dev, toks.cuda(), tiny))
+        moe_launches += n
+        lg_c, cache_c = lm.prefill(cpu, toks[:, :16], tiny, max_len=24)
+        lg_c, _ = lm.decode_one(cpu, cache_c, toks[:, 16], 16, tiny)
+        (lg_g, cache_g), n1, _ = lm_counts(torch, lambda: lm.prefill(
+            dev, toks[:, :16].cuda(), tiny, max_len=24))
+        (lg_g, _), n2, _ = lm_counts(torch, lambda: lm.decode_one(
+            dev, cache_g, toks[:, 16].cuda(), 16, tiny))
+        moe_launches += n1 + n2
+        e = max(float((got.cpu() - want).abs().max()),
+                float((lg_g.cpu() - lg_c).abs().max()),
+                float((cache_g["k"].cpu() - cache_c["k"]).abs().max()))
+        if not e <= LM_MOE_ATOL or abs(float(got_aux) - float(want_aux)) \
+                > 1e-5:
+            raise AssertionError(f"lm: tiny MoE (groups {groups}) on the "
+                                 f"card differs from the CPU by {e}")
+        log(f"lm: tiny MoE (8 experts, top 2, dispatch_groups {groups}) "
+            f"forward, prefill and a decode step on the card against the "
+            f"CPU: max abs {e:.3g} (atol {LM_MOE_ATOL}), aux "
+            f"{float(got_aux):.6f} / {float(want_aux):.6f}")
+    log(f"lm: tiny MoE flash_attention launches {moe_launches} (not in the "
+        f"kernels line's count, which is smollm-360m's)")
+    return {"launches": launches, "moe_launches": moe_launches}
+
+
 def row_by_row_fingerprints(graph):
     """(node fingerprints, plan id) one ``digest_bytes`` at a time, as
     the reference computes them (its ``core/cost.py``
@@ -1894,7 +2495,22 @@ def main() -> int:
         f"{hash_timed[(1, 64)][0]:.4f} ms, at (65536, 64): "
         f"{hash_timed[(65536, 64)][0]:.4f} ms; {card}")
 
-    # -- 9. result lines ----------------------------------------------------
+    # -- 9. the encoders with and without the CUDA-graph memo --------------
+    t = time.perf_counter()
+    memo = run_compile_cache(torch, card, mp, res, t2["rows"][0]["res"])
+    log(f"compile_cache: in {time.perf_counter() - t:.1f} s, captures "
+        f"{memo['captures']}, replays {memo['replays']}")
+
+    # -- 10. smollm-360m prefill and decode through flash_attention --------
+    del mp
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    lm_run = run_lm(torch, card)
+    log(f"lm: in {time.perf_counter() - t:.1f} s, flash_attention launches "
+        f"{lm_run['launches']} (smollm-360m), {lm_run['moe_launches']} "
+        f"(tiny MoE)")
+
+    # -- 11. result lines ---------------------------------------------------
     log(json.dumps({"kernels": [{
         "name": "dense_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/dense_topk/csrc/dense_topk.cu",
@@ -1915,7 +2531,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
-        **flash_entry}, {
+        **flash_entry, "launches": lm_run["launches"]}, {
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                   "embedding_bag.cu",

@@ -1,8 +1,8 @@
 # Explicit caching strategies (paper §4): counterpart of repro.caching
 # with the cache families, their backends and tiers, provenance
 # manifests, economics, codecs, the Artifact API, auto_cache, the async
-# data plane and cache warming.  Left for a later slice (ROADMAP Queue
-# A item 5): the compile cache, whose counterpart is a CUDA-graph memo.
+# data plane, cache warming and the compile cache, whose counterpart is
+# a memo of CUDA graphs keyed by weight source as well as shape.
 from .backends import (BACKENDS, CacheBackend, DbmBackend, FileLock,
                        MemoryLRUBackend, PickleDirBackend, SQLiteBackend,
                        atomic_write_bytes, backend_store_exists,
@@ -33,6 +33,8 @@ from .lazy import Lazy
 from .artifact import Artifact, to_hub, from_hub, hub_dir, \
     install_artifact_methods
 from .bucketing import BucketedRunner, bucket_size, pad_batch
+from .compile_cache import (CompileCache, CompileCacheStats,
+                            default_compile_cache, signature_of_args)
 from .auto import (auto_cache, auto_cache_or_none, derive_fingerprint,
                    typecheck_pipeline, UncacheableError)
 
@@ -60,6 +62,8 @@ __all__ = [
     "KeyValueCache", "ScorerCache", "DenseScorerCache", "RetrieverCache",
     "IndexerCache", "Lazy", "Artifact", "to_hub", "from_hub", "hub_dir",
     "BucketedRunner", "bucket_size", "pad_batch",
+    "CompileCache", "CompileCacheStats", "default_compile_cache",
+    "signature_of_args",
     "auto_cache", "auto_cache_or_none", "derive_fingerprint",
     "typecheck_pipeline", "UncacheableError",
 ]

@@ -17,8 +17,11 @@ queries online, take the top-k over the embedding matrix:
 * that total order is what makes ``with_cutoff`` sound.
 
 Embeddings come from the cross-encoder backbone in single-text mode
-(masked mean pool, L2-normalised); query embeddings are memoised per
-encoder (bounded LRU), so hybrid systems encode each query once.
+(masked mean pool, L2-normalised), in batches of 256 whose last is
+padded with zero rows to a multiple of 8 as the reference pads it, each
+through the process-wide ``CompileCache`` (one CUDA graph per batch
+shape on the card); query embeddings are memoised per encoder (bounded
+LRU), so hybrid systems encode each query once.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..caching import compile_cache
 from ..core.frame import ColFrame
 from ..core.pipeline import Transformer
 from ..kernels.dense_topk import dense_topk_op, dense_topk_ref
@@ -65,18 +69,27 @@ class DenseEncoder:
     def device(self) -> torch.device:
         return self.encoder.device
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        pooled = self.encoder(tokens)
+        return pooled / torch.clamp(
+            torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-6)
+
     def encode(self, texts: Sequence[str], batch: int = 256) -> torch.Tensor:
         """texts -> [len(texts), d_model] fp32 on the encoder's device."""
         outs = []
         with torch.inference_mode():
             for lo in range(0, len(texts), batch):
                 chunk = texts[lo:lo + batch]
-                toks = torch.from_numpy(self.tokenizer.encode_batch(
-                    chunk, self.cfg.max_len)).to(self.device)
-                pooled = self.encoder(toks)
-                outs.append(pooled / torch.clamp(
-                    torch.linalg.vector_norm(pooled, dim=-1, keepdim=True),
-                    min=1e-6))
+                toks = self.tokenizer.encode_batch(chunk, self.cfg.max_len)
+                pad = (-len(chunk)) % 8
+                if pad:
+                    toks = np.concatenate([toks, np.zeros(
+                        (pad, self.cfg.max_len), toks.dtype)])
+                emb = compile_cache.default_compile_cache.call(
+                    f"dense_encode:{self.cfg.name}", self._embed,
+                    torch.from_numpy(toks).to(self.device),
+                    weight_source=(self.cfg,) + self.encoder.weight_source)
+                outs.append(emb[:len(chunk)])
                 self.encoded_texts += len(chunk)
         if not outs:
             return torch.zeros((0, self.cfg.d_model), dtype=torch.float32,

@@ -95,8 +95,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out,
               float* __restrict__ part_ml, float* __restrict__ part_acc,
-              int H, int K, int Sq, int Sk, float scale_log2, int causal,
-              int per) {
+              int H, int K, int Sq, int Sk, int sk_valid, int q_offset,
+              float scale_log2, int causal, int per) {
   constexpr int VE = 16 / sizeof(T);   // elements per 16-byte load
   constexpr int HD = LPK * VE;
   constexpr int KPW = 32 / LPK;        // keys per warp-wide load
@@ -109,10 +109,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int G = H / K, rows = G * Sq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int kg = lane / LPK, cl = lane % LPK;
-  const int s0 = split * per, s1 = min(Sk, s0 + per);
+  const int s0 = split * per, s1 = min(sk_valid, s0 + per);
 
   // this lane's columns of each row, pre-scaled; row r = i * G + g is query
-  // i of head kvh * G + g, at key position i + Sk - Sq
+  // i of head kvh * G + g, at key position i + q_offset
   float qv[R][VE];
   int qpos[R];
 #pragma unroll
@@ -122,7 +122,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < VE; ++e) qv[r][e] = 0.0f;
     if (r < rows) {
       const int i = r / G, g = r - i * G;
-      qpos[r] = causal ? i + Sk - Sq : Sk;
+      qpos[r] = causal ? i + q_offset : sk_valid;
       const uint4 u = __ldg(reinterpret_cast<const uint4*>(
                                 q + ((static_cast<size_t>(b) * H + kvh * G + g) *
                                          Sq + i) * HD) + cl);
@@ -282,14 +282,14 @@ __global__ void combine_kernel(const float* __restrict__ part_ml,
 template <typename T, int LPK, int R>
 cudaError_t launch_lpk_r(const void* q, const void* k, const void* v,
                          void* out, float* part_ml, float* part_acc, int B,
-                         int H, int K, int Sq, int Sk, float scale_log2,
-                         int causal, int n_splits, int per,
-                         cudaStream_t stream) {
+                         int H, int K, int Sq, int Sk, int sk_valid,
+                         int q_offset, float scale_log2, int causal,
+                         int n_splits, int per, cudaStream_t stream) {
   constexpr int U = R <= 4 ? 4 : R <= 8 ? 2 : 1;
   decode_kernel<T, LPK, R, U><<<dim3(n_splits, K, B), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), part_ml, part_acc, H, K,
-      Sq, Sk, scale_log2, causal, per);
+      Sq, Sk, sk_valid, q_offset, scale_log2, causal, per);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
   constexpr int HD = LPK * 16 / static_cast<int>(sizeof(T));
@@ -301,27 +301,28 @@ cudaError_t launch_lpk_r(const void* q, const void* k, const void* v,
 template <typename T, int LPK>
 cudaError_t launch_lpk(const void* q, const void* k, const void* v, void* out,
                        float* part_ml, float* part_acc, int B, int H, int K,
-                       int Sq, int Sk, float scale_log2, int causal,
-                       int n_splits, int per, cudaStream_t stream) {
+                       int Sq, int Sk, int sk_valid, int q_offset,
+                       float scale_log2, int causal, int n_splits, int per,
+                       cudaStream_t stream) {
   const int rows = (H / K) * Sq;
   const auto fn = rows <= 4   ? launch_lpk_r<T, LPK, 4>
                   : rows <= 8 ? launch_lpk_r<T, LPK, 8>
                               : launch_lpk_r<T, LPK, 16>;
-  return fn(q, k, v, out, part_ml, part_acc, B, H, K, Sq, Sk, scale_log2,
-            causal, n_splits, per, stream);
+  return fn(q, k, v, out, part_ml, part_acc, B, H, K, Sq, Sk, sk_valid,
+            q_offset, scale_log2, causal, n_splits, per, stream);
 }
 
 // Returns cudaErrorInvalidValue for a shape this path does not take.
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* part_ml, float* part_acc, int B, int H, int K,
-                   int Sq, int Sk, int hd, float scale, int causal,
-                   int n_splits, int per, cudaStream_t stream) {
+                   int Sq, int Sk, int sk_valid, int q_offset, int hd,
+                   float scale, int causal, int n_splits, int per,
+                   cudaStream_t stream) {
   const int bytes = hd * static_cast<int>(sizeof(T));
-  if ((H / K) * Sq > 16 || Sk < 1 || hd > 128 || bytes % 16 != 0 ||
-      n_splits < 1 ||
-      n_splits > 65535 || per < 1 ||
-      static_cast<long long>(n_splits) * per < Sk ||
+  if ((H / K) * Sq > 16 || sk_valid < 1 || sk_valid > Sk || hd > 128 ||
+      bytes % 16 != 0 || n_splits < 1 || n_splits > 65535 || per < 1 ||
+      static_cast<long long>(n_splits) * per < sk_valid ||
       (n_splits > 1 && (part_ml == nullptr || part_acc == nullptr)))
     return cudaErrorInvalidValue;
   decltype(&launch_lpk<T, 1>) fn = nullptr;
@@ -337,8 +338,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     default: break;
   }
   if (fn == nullptr) return cudaErrorInvalidValue;
-  return fn(q, k, v, out, part_ml, part_acc, B, H, K, Sq, Sk,
-            scale * 1.4426950408889634f, causal, n_splits, per, stream);
+  return fn(q, k, v, out, part_ml, part_acc, B, H, K, Sq, Sk, sk_valid,
+            q_offset, scale * 1.4426950408889634f, causal, n_splits, per,
+            stream);
 }
 
 }  // namespace dec

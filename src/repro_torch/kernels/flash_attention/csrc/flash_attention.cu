@@ -10,10 +10,14 @@
 //                        * v[b, h / G, j]
 //
 // with the online-softmax state (m, l, acc) in fp32 and the output cast to
-// q's dtype once at the end.  If causal, key j is masked for query row i
-// when j > i + Sk - Sq (the last query sees the last key).  The reference pads
-// Sk to its block size and masks keys past the true Sk; nothing is padded
-// here, so that mask is the tile's ragged tail.  A masked key gets
+// q's dtype once at the end.  As in the reference kernel, keys at or past
+// sk_valid are masked, and if causal, key j is masked for query row i when
+// j > i + q_offset (by default sk_valid = Sk and q_offset = Sk - Sq: the last
+// query sees the last key).  A key row's stride stays the tensor's Sk, so a
+// decode step reads a preallocated cache of Sk rows, sk_valid of them filled,
+// in place; every loop stops at sk_valid.  The reference pads Sk to its block
+// size and masks keys past the true Sk; nothing is padded here, so that mask
+// is the tile's ragged tail.  A masked key gets
 // probability 0: the "simt" path sets its score to NEG_INF = -1e30 as the
 // reference does (kernel.py:32, :67), the other two paths to -inf with the
 // running max starting at -1e30.  For every row with at least one valid key
@@ -112,8 +116,8 @@ template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int H,
-                       int K, int Sq, int Sk, int hd, float scale,
-                       int causal) {
+                       int K, int Sq, int Sk, int sk_valid, int q_offset,
+                       int hd, float scale, int causal) {
   extern __shared__ __align__(16) float smem[];
   const int ks = hd | 1;                        // odd row stride of k_s
   float* q_s = smem;                            // [kRows][hd]
@@ -131,11 +135,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_mine =
       left <= 0 ? 0 : min(kRowsPerWarp, (left + kWarps - 1) / kWarps);
 
-  const int q_offset = Sk - Sq;
-  int kv_end = Sk;
+  int kv_end = sk_valid;
   if (causal) {
     const int last = min(row0 + kRows, n_rows) - 1;
-    kv_end = min(kv_end, last / G + q_offset + 1);
+    kv_end = max(0, min(kv_end, last / G + q_offset + 1));
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][NC];
@@ -168,7 +171,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < kKeys / kWarps; ++jj) {
       const int j = warp + kWarps * jj;
-      const bool in = k0 + j < Sk;
+      const bool in = k0 + j < sk_valid;
       const size_t at = static_cast<size_t>(k0 + j) * hd;
 #pragma unroll
       for (int n = 0; n < NC; ++n) {
@@ -202,8 +205,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
         if (i < n_mine) {
-          const bool va = ja < Sk && (!causal || ja <= qpos[i]);
-          const bool vb = jb < Sk && (!causal || jb <= qpos[i]);
+          const bool va = ja < sk_valid && (!causal || ja <= qpos[i]);
+          const bool vb = jb < sk_valid && (!causal || jb <= qpos[i]);
           const float xa = va ? s[i][0] * scale : kNegInf;
           const float xb = vb ? s[i][1] * scale : kNegInf;
           const float m_new = fmaxf(m[i], warp_max(fmaxf(xa, xb)));
@@ -263,8 +266,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int NC>
 cudaError_t launch_nc(const void* q, const void* k, const void* v, void* out,
-                      int B, int H, int K, int Sq, int Sk, int hd, float scale,
-                      int causal, cudaStream_t stream) {
+                      int B, int H, int K, int Sq, int Sk, int sk_valid,
+                      int q_offset, int hd, float scale, int causal,
+                      cudaStream_t stream) {
   const size_t smem = smem_floats(hd) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -276,17 +280,18 @@ cudaError_t launch_nc(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), K, B);
   flash_attention_kernel<T, NC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, K, Sq, Sk, hd, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(out), H, K, Sq, Sk, sk_valid,
+      q_offset, hd, scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int K, int Sq, int Sk, int hd, float scale, int causal,
-           int device, void* stream) {
+           int H, int K, int Sq, int Sk, int sk_valid, int q_offset, int hd,
+           float scale, int causal, int device, void* stream) {
   if (B < 1 || B > 65535 || K < 1 || K > 65535 || H < K || H % K != 0 ||
-      Sq < 1 || Sk < 0 || hd < 1 || hd > 128 ||
+      Sq < 1 || Sk < 0 || sk_valid < 0 || sk_valid > Sk || hd < 1 ||
+      hd > 128 ||
       static_cast<long long>(Sq) * (H / K) >= (1LL << 31)) {
     return cudaErrorInvalidValue;
   }
@@ -295,41 +300,45 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const decltype(&launch_nc<T, 1>) by_nc[] = {
       launch_nc<T, 1>, launch_nc<T, 2>, launch_nc<T, 3>, launch_nc<T, 4>};
-  return by_nc[(hd + 31) / 32 - 1](q, k, v, out, B, H, K, Sq, Sk, hd, scale,
-                                   causal, s);
+  return by_nc[(hd + 31) / 32 - 1](q, k, v, out, B, H, K, Sq, Sk, sk_valid,
+                                   q_offset, hd, scale, causal, s);
 }
 
 }  // namespace
 
 // q [B, H, Sq, hd], k and v [B, K, Sk, hd] row-major on `device`, one dtype;
-// out [B, H, Sq, hd] in that dtype is written on `stream`.  If causal, key j
-// is masked for query row i when j > i + Sk - Sq.  Returns the CUDA error
-// code of the launch (0 on success); does not synchronise.
+// out [B, H, Sq, hd] in that dtype is written on `stream`.  Keys at or past
+// sk_valid (0 <= sk_valid <= Sk) are masked; if causal, key j is masked for
+// query row i when j > i + q_offset.  Returns the CUDA error code of the
+// launch (0 on success); does not synchronise.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* out, int B, int H, int K, int Sq,
-                                   int Sk, int hd, float scale, int causal,
-                                   int device, void* stream) {
-  return launch<float>(q, k, v, out, B, H, K, Sq, Sk, hd, scale, causal,
-                       device, stream);
+                                   int Sk, int sk_valid, int q_offset, int hd,
+                                   float scale, int causal, int device,
+                                   void* stream) {
+  return launch<float>(q, k, v, out, B, H, K, Sq, Sk, sk_valid, q_offset, hd,
+                       scale, causal, device, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out, int B, int H,
-                                    int K, int Sq, int Sk, int hd, float scale,
+                                    int K, int Sq, int Sk, int sk_valid,
+                                    int q_offset, int hd, float scale,
                                     int causal, int device, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, H, K, Sq, Sk, hd, scale,
-                               causal, device, stream);
+  return launch<__nv_bfloat16>(q, k, v, out, B, H, K, Sq, Sk, sk_valid,
+                               q_offset, hd, scale, causal, device, stream);
 }
 
-// The "wgmma" path: bf16 q, k, v, out as above, hd 64 or 128, Sk >= 1, and
-// 16-byte aligned q, k and v (TMA reads them).
+// The "wgmma" path: bf16 q, k, v, out as above, hd 64 or 128,
+// 1 <= sk_valid <= Sk, and 16-byte aligned q, k and v (TMA reads them).
 extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k,
                                           const void* v, void* out, int B,
                                           int H, int K, int Sq, int Sk,
-                                          int hd, float scale, int causal,
-                                          int device, void* stream) {
-  if (B < 1 || K < 1 || H < K || H % K != 0 || Sq < 1 || Sk < 1 ||
-      (hd != 64 && hd != 128) ||
+                                          int sk_valid, int q_offset, int hd,
+                                          float scale, int causal, int device,
+                                          void* stream) {
+  if (B < 1 || K < 1 || H < K || H % K != 0 || Sq < 1 || sk_valid < 1 ||
+      sk_valid > Sk || (hd != 64 && hd != 128) ||
       static_cast<long long>((Sq + wg::kRows - 1) / wg::kRows) * B * H >=
           (1LL << 31) ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -339,46 +348,50 @@ extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k,
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hd == 64
-             ? wg::launch<64>(q, k, v, out, B, H, K, Sq, Sk, scale, causal, s)
-             : wg::launch<128>(q, k, v, out, B, H, K, Sq, Sk, scale, causal,
-                               s);
+  return hd == 64 ? wg::launch<64>(q, k, v, out, B, H, K, Sq, Sk, sk_valid,
+                                   q_offset, scale, causal, s)
+                  : wg::launch<128>(q, k, v, out, B, H, K, Sq, Sk, sk_valid,
+                                    q_offset, scale, causal, s);
 }
 
 // The "decode" path: G * Sq <= 16 query rows per KV head, hd * (bytes of the
-// dtype) a power-of-two multiple of 16 up to 512.  The key axis is cut into
-// n_splits splits of `per` keys; with more than one, part_ml [B, K, n_splits,
-// G * Sq, 2] and part_acc [B, K, n_splits, G * Sq, hd] (fp32) take the
-// partial states and a second kernel merges them into out.
+// dtype) a power-of-two multiple of 16 up to 512.  The sk_valid keys are cut
+// into n_splits splits of `per` keys; with more than one, part_ml [B, K,
+// n_splits, G * Sq, 2] and part_acc [B, K, n_splits, G * Sq, hd] (fp32) take
+// the partial states and a second kernel merges them into out.
 template <typename T>
 int decode_entry(const void* q, const void* k, const void* v, void* out,
                  void* part_ml, void* part_acc, int B, int H, int K, int Sq,
-                 int Sk, int hd, float scale, int causal, int n_splits,
-                 int per, int device, void* stream) {
+                 int Sk, int sk_valid, int q_offset, int hd, float scale,
+                 int causal, int n_splits, int per, int device,
+                 void* stream) {
   if (B < 1 || B > 65535 || K < 1 || K > 65535 || H < K || H % K != 0 ||
-      Sq < 1)
+      Sq < 1 || sk_valid > Sk)
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   return dec::launch<T>(q, k, v, out, static_cast<float*>(part_ml),
-                        static_cast<float*>(part_acc), B, H, K, Sq, Sk, hd,
-                        scale, causal, n_splits, per,
+                        static_cast<float*>(part_acc), B, H, K, Sq, Sk,
+                        sk_valid, q_offset, hd, scale, causal, n_splits, per,
                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_decode_f32(
     const void* q, const void* k, const void* v, void* out, void* part_ml,
-    void* part_acc, int B, int H, int K, int Sq, int Sk, int hd, float scale,
-    int causal, int n_splits, int per, int device, void* stream) {
+    void* part_acc, int B, int H, int K, int Sq, int Sk, int sk_valid,
+    int q_offset, int hd, float scale, int causal, int n_splits, int per,
+    int device, void* stream) {
   return decode_entry<float>(q, k, v, out, part_ml, part_acc, B, H, K, Sq, Sk,
-                             hd, scale, causal, n_splits, per, device, stream);
+                             sk_valid, q_offset, hd, scale, causal, n_splits,
+                             per, device, stream);
 }
 
 extern "C" int flash_attention_decode_bf16(
     const void* q, const void* k, const void* v, void* out, void* part_ml,
-    void* part_acc, int B, int H, int K, int Sq, int Sk, int hd, float scale,
-    int causal, int n_splits, int per, int device, void* stream) {
+    void* part_acc, int B, int H, int K, int Sq, int Sk, int sk_valid,
+    int q_offset, int hd, float scale, int causal, int n_splits, int per,
+    int device, void* stream) {
   return decode_entry<__nv_bfloat16>(q, k, v, out, part_ml, part_acc, B, H, K,
-                                     Sq, Sk, hd, scale, causal, n_splits, per,
-                                     device, stream);
+                                     Sq, Sk, sk_valid, q_offset, hd, scale,
+                                     causal, n_splits, per, device, stream);
 }

@@ -218,16 +218,18 @@ __device__ __forceinline__ void mma_pv<128>(float (&o)[64],
   mma_rs_n128(o, a, db, 1);
 }
 
-// q [B*H][Sq][HD], k and v [B*K][Sk][HD] through their tensor maps; out
-// [B, H, Sq, HD].  Scores are scaled by scale_log2 = log2(e) / sqrt(hd) and
-// exponentiated with exp2.
+// q [B*H][Sq][HD], k and v [B*K][Sk][HD] through their tensor maps, whose
+// key rows stop at sk_valid (TMA reads the rest as zeros); out [B, H, Sq,
+// HD].  Keys at or past sk_valid are masked, and if causal, key j for query
+// row i when j > i + q_offset.  Scores are scaled by scale_log2 = log2(e) /
+// sqrt(hd) and exponentiated with exp2.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v,
              __nv_bfloat16* __restrict__ out, int B, int H, int K, int Sq,
-             int Sk, float scale_log2, int causal) {
+             int sk_valid, int q_offset, float scale_log2, int causal) {
   using C = Cfg<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -245,9 +247,9 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.x % (B * H);
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / (B * H);
   const int b = bh / H, h = bh % H, kvh = h / (H / K);
-  const int q0 = qt * kRows, off = Sk - Sq;
-  int kv_end = Sk;
-  if (causal) kv_end = min(Sk, min(q0 + kRows, Sq) + off);
+  const int q0 = qt * kRows, off = q_offset;
+  int kv_end = sk_valid;
+  if (causal) kv_end = min(sk_valid, min(q0 + kRows, Sq) + off);
   const int n_kt = kv_end > 0 ? (kv_end + kKeys - 1) / kKeys : 0;
 
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
@@ -321,7 +323,8 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(sc);
 
         // scale; mask the ragged tail and, near the diagonal, the future
-        const bool edge = k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > wg_first);
+        const bool edge =
+            k0 + kKeys > sk_valid || (causal && k0 + kKeys - 1 > wg_first);
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
 #pragma unroll
@@ -329,7 +332,8 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             float x = sc[4 * j + e] * scale_log2;
             if (edge) {
               const int key = k0 + 8 * j + col0 + (e & 1);
-              if (key >= Sk || (causal && key > (e < 2 ? qpos0 : qpos1)))
+              if (key >= sk_valid ||
+                  (causal && key > (e < 2 ? qpos0 : qpos1)))
                 x = -INFINITY;
             }
             sc[4 * j + e] = x;
@@ -445,17 +449,18 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A [depth][rows][hd] bf16 tensor as a 3-d map of [128 rows][64 columns]
-// boxes, 128-byte swizzled; rows past `rows` read as zeros.
+// A [depth][stride][hd] bf16 tensor, of whose `stride` rows the first `rows`
+// are mapped, as a 3-d map of [128 rows][64 columns] boxes, 128-byte
+// swizzled; rows past `rows` read as zeros.
 inline bool make_map(CUtensorMap* map, const void* ptr, int depth, int rows,
-                     int hd) {
+                     int stride, int hd) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(depth)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
-                                 static_cast<cuuint64_t>(rows) * hd * 2};
+                                 static_cast<cuuint64_t>(stride) * hd * 2};
   const cuuint32_t box[3] = {64, 128, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
@@ -467,11 +472,13 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int depth, int rows,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int K, int Sq, int Sk, float scale,
-                   int causal, cudaStream_t stream) {
+                   int B, int H, int K, int Sq, int Sk, int sk_valid,
+                   int q_offset, float scale, int causal,
+                   cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B * H, Sq, HD) || !make_map(&tk, k, B * K, Sk, HD) ||
-      !make_map(&tv, v, B * K, Sk, HD))
+  if (!make_map(&tq, q, B * H, Sq, Sq, HD) ||
+      !make_map(&tk, k, B * K, sk_valid, Sk, HD) ||
+      !make_map(&tv, v, B * K, sk_valid, Sk, HD))
     return cudaErrorInvalidValue;
   const int smem = Cfg<HD>::kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -480,7 +487,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const long long n_qt = (Sq + kRows - 1) / kRows;
   wgmma_kernel<HD><<<static_cast<unsigned>(n_qt * B * H), kThreads, smem,
                      stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out),
-                               B, H, K, Sq, Sk,
+                               B, H, K, Sq, sk_valid, q_offset,
                                scale * 1.4426950408889634f, causal);
   return cudaGetLastError();
 }

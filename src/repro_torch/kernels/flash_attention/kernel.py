@@ -24,6 +24,12 @@ three paths, and nothing else does:
   sizes): scalar fp32 on shared-memory tiles, the first kernel of the
   port.  f32 stays off the tensor cores: TF32 is opt-in in this repo.
 
+Every path takes the reference kernel's ``sk_valid`` (keys at or past
+it are masked; its loops and ``decode_splits`` stop there, so no block
+is spent on them) and ``q_offset`` (the causal offset); a key row's
+stride stays the tensor's Sk, so a decode step reads a preallocated
+cache in place.
+
 This wrapper takes CUDA tensors only: it checks them, allocates the
 output and scratch, launches on the current stream and raises if a
 launch fails; nothing falls back to another path.
@@ -39,6 +45,7 @@ import math
 import torch
 
 from .. import _build
+from .ref import offsets
 
 __all__ = ["flash_attention", "path_for", "decode_splits", "MAX_HEAD_DIM"]
 
@@ -82,11 +89,12 @@ def decode_splits(B: int, K: int, Sk: int) -> tuple[int, int]:
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# (q, k, v, out, B, H, K, Sq, Sk, hd, scale, causal, device, stream)
-_ARGS = [_PTR] * 4 + [_INT] * 6 + [ctypes.c_float, _INT, _INT, _PTR]
-# (q, k, v, out, part_ml, part_acc, B, H, K, Sq, Sk, hd, scale, causal,
-#  n_splits, per, device, stream)
-_DECODE_ARGS = [_PTR] * 6 + [_INT] * 6 + [ctypes.c_float] + [_INT] * 4 \
+# (q, k, v, out, B, H, K, Sq, Sk, sk_valid, q_offset, hd, scale, causal,
+#  device, stream)
+_ARGS = [_PTR] * 4 + [_INT] * 8 + [ctypes.c_float, _INT, _INT, _PTR]
+# (q, k, v, out, part_ml, part_acc, B, H, K, Sq, Sk, sk_valid, q_offset,
+#  hd, scale, causal, n_splits, per, device, stream)
+_DECODE_ARGS = [_PTR] * 6 + [_INT] * 8 + [ctypes.c_float] + [_INT] * 4 \
     + [_PTR]
 
 
@@ -105,11 +113,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, sk_valid: int | None = None,
+                    q_offset: int | None = None) -> torch.Tensor:
     """q [B, H, Sq, hd], k and v [B, K, Sk, hd] on one CUDA device, all
     float32 or all bfloat16, contiguous; H a multiple of K; 1 <= hd <=
-    128.  If ``causal``, key j is masked for query row i when
-    j > i + Sk - Sq.  Scores are scaled by 1/sqrt(hd).  Returns
+    128.  Keys at or past ``sk_valid`` (default Sk) are masked; if
+    ``causal``, so is key j for query row i when j > i + ``q_offset``
+    (default sk_valid - Sq).  Scores are scaled by 1/sqrt(hd).  Returns
     [B, H, Sq, hd] in q's dtype."""
     if q.device.type != "cuda" or k.device != q.device or \
             v.device != q.device:
@@ -137,7 +147,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention takes 1 <= hd <= {MAX_HEAD_DIM}, "
                          f"got {hd}: a larger head needs more shared memory "
                          f"and registers than a block has")
-    path = path_for(q.dtype, B, H, K, Sq, Sk, hd, causal)
+    sk_valid, q_offset = offsets(Sq, Sk, sk_valid, q_offset)
+    if abs(q_offset) >= 1 << 30:
+        raise ValueError(f"flash_attention takes |q_offset| < 2**30, got "
+                         f"{q_offset}")
+    path = path_for(q.dtype, B, H, K, Sq, sk_valid, hd, causal)
     out = torch.empty_like(q)
     scale = 1.0 / math.sqrt(hd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -146,9 +160,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
         err = _entry("flash_attention_wgmma_bf16")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, K, Sq, Sk, hd, scale, int(causal), q.device.index, stream)
+            B, H, K, Sq, Sk, sk_valid, q_offset, hd, scale, int(causal),
+            q.device.index, stream)
     elif path == "decode":
-        n_splits, per = decode_splits(B, K, Sk)
+        n_splits, per = decode_splits(B, K, sk_valid)
         rows = (H // K) * Sq
         part_ml = part_acc = None
         if n_splits > 1:
@@ -159,12 +174,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(),
-            B, H, K, Sq, Sk, hd, scale, int(causal), n_splits, per,
-            q.device.index, stream)
+            B, H, K, Sq, Sk, sk_valid, q_offset, hd, scale, int(causal),
+            n_splits, per, q.device.index, stream)
     else:
         err = _entry(f"flash_attention_{_SUFFIX[q.dtype]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, K, Sq, Sk, hd, scale, int(causal), q.device.index, stream)
+            B, H, K, Sq, Sk, sk_valid, q_offset, hd, scale, int(causal),
+            q.device.index, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention ({path} path) launch failed "
                            f"with CUDA error {err}")

@@ -1,2 +1,2 @@
-# Model zoo counterpart of repro.models; this slice ports the shared
-# machinery and the cross-encoder.
+# Model zoo counterpart of repro.models: the shared machinery, the
+# cross-encoder and the decoder-only LM family (recsys and gcn follow).

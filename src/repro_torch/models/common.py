@@ -7,6 +7,10 @@ tensors in the reference's layout (``wq [L, D, H, hd]``,
 reference's parameter tree and both packages compute from identical
 weights.  Native initialisation draws from a ``torch.Generator``; it
 cannot reproduce the reference's ``jax.random`` bits.
+
+``shard_act`` is the identity: the reference's ``activation_sharding``
+context, the only thing that changes it there, waits for the port's
+distribution layer (meshes), so the port does not export it.
 """
 from __future__ import annotations
 
@@ -18,8 +22,9 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["ParamSpec", "init_params", "params_digest", "params_from_numpy",
-           "rms_norm"]
+__all__ = ["ParamSpec", "init_params", "abstract_params", "logical_axes_tree",
+           "count_params", "params_digest", "params_from_numpy", "rms_norm",
+           "rope", "shard_act"]
 
 
 @dataclass(frozen=True)
@@ -88,13 +93,37 @@ def init_params(specs: Dict, generator: torch.Generator,
     return _unflatten(vals)
 
 
+def abstract_params(specs: Dict) -> Dict:
+    """The spec tree as tensors on the ``meta`` device: shapes and dtypes,
+    no memory (the reference's ``ShapeDtypeStruct`` tree)."""
+    return _unflatten((path, torch.empty(spec.shape, dtype=spec.dtype,
+                                         device="meta"))
+                      for path, spec in _leaves(specs))
+
+
+def logical_axes_tree(specs: Dict) -> Dict:
+    return _unflatten((path, spec.logical_axes)
+                      for path, spec in _leaves(specs))
+
+
+def count_params(specs: Dict) -> int:
+    return sum(math.prod(spec.shape) for _, spec in _leaves(specs))
+
+
+def _tensor_of(leaf) -> torch.Tensor:
+    arr = np.array(leaf, copy=True)
+    if arr.dtype.name == "bfloat16":      # ml_dtypes: torch cannot take it
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def params_from_numpy(tree: Dict, device: Union[str, torch.device]) -> Dict:
     """The weight bridge: a nested dict of arrays (the reference's
     parameter tree, converted with ``np.asarray``) -> the same nested
-    dict of tensors on ``device``, layout and dtype unchanged."""
-    return _unflatten(
-        (path, torch.from_numpy(np.array(leaf, copy=True)).to(device))
-        for path, leaf in _leaves(tree))
+    dict of tensors on ``device``, layout and dtype unchanged (bf16
+    arrays of ``ml_dtypes`` included)."""
+    return _unflatten((path, _tensor_of(leaf).to(device))
+                      for path, leaf in _leaves(tree))
 
 
 def params_digest(tree: Dict) -> str:
@@ -116,3 +145,27 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.square().mean(dim=-1, keepdim=True, dtype=torch.float32)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * scale
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         base: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding. x: [..., seq, heads, d_head].
+
+    cos/sin are computed in fp32 (tiny [S, d/2] tables), then applied in
+    the activation's dtype, as ``repro.models.common.rope`` does."""
+    half = x.shape[-1] // 2
+    freq = (1.0 / base) ** (torch.arange(half, dtype=torch.float32,
+                                         device=x.device) / half)
+    angles = positions.to(device=x.device, dtype=torch.float32)[..., None] \
+        * freq                                            # [..., S, half]
+    cos = torch.cos(angles)[..., None, :].to(x.dtype)     # broadcast heads
+    sin = torch.sin(angles)[..., None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def shard_act(x: torch.Tensor, logical_axes) -> torch.Tensor:
+    """The identity: no activation-sharding context exists in the port
+    yet (see the module's docstring)."""
+    del logical_axes
+    return x

@@ -9,8 +9,12 @@ declares ``cacheable=False`` (paper §5).
 Both wrap a small bidirectional encoder over hash-tokenized text.  The
 weights live in an ``Encoder`` module; the forward pass is plain
 functions on tensors.  Attention is a dense masked softmax in plain
-PyTorch, as the reference computes it outside any kernel.  Numerics
-that must match the reference:
+PyTorch, as the reference computes it outside any kernel.  Miss batches
+run through ``BucketedRunner``'s power-of-two buckets, and each bucket
+through the process-wide ``CompileCache``: one CUDA graph per (scorer
+class and config name, bucket, device, config and weight source), so a
+bucket's dozens of launches become one replay.  Numerics that must
+match the reference:
 
 * GELU is the tanh approximation (``jax.nn.gelu``'s default);
 * token ids are clamped to ``[0, V-1]`` (``jnp.take(mode="clip")``);
@@ -27,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..caching import compile_cache
 from ..caching.bucketing import BucketedRunner
 from ..core.frame import ColFrame
 from ..core.pipeline import Transformer, add_ranks
@@ -172,8 +177,13 @@ class _EncoderBase(Transformer):
     def _score_tokens(self, tokens: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             t = torch.from_numpy(tokens).to(self.encoder.device)
-            out = encoder_score(self.encoder.tree, t, self.cfg)
+            out = compile_cache.default_compile_cache.call(
+                f"{type(self).__name__}:{self.cfg.name}", self._encode, t,
+                weight_source=(self.cfg,) + self.encoder.weight_source)
             return out.cpu().numpy()
+
+    def _encode(self, tokens: torch.Tensor) -> torch.Tensor:
+        return encoder_score(self.encoder.tree, tokens, self.cfg)
 
     def fingerprint_extras(self) -> Tuple:
         """The weight source (native seed, or the digest of bridged

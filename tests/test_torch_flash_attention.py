@@ -1,12 +1,16 @@
 """flash_attention of repro_torch: the port's op on the CPU (its plain
 version) against the reference's op (the Pallas kernel in interpret
 mode) on the same numpy-seeded inputs — the reference's sweep, a decode
-step, causal Sq < Sk, MQA and GQA groupings — and dispatch by device;
+step, causal Sq < Sk, MQA and GQA groupings, ``sk_valid`` and
+``q_offset`` against the reference kernel's — and dispatch by device;
 ``path_for``'s choice of kernel; the plain versions of the kernels'
 arithmetic (bf16 probabilities for the "wgmma" path, split-and-merge
 for the "decode" path) against the reference and its bound.  The CUDA
 kernels themselves are tested on the card by
 ``test_torch_flash_attention_cuda.py``."""
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +18,7 @@ import torch
 
 from repro.kernels.flash_attention import attention_ref as j_attention_ref
 from repro.kernels.flash_attention import flash_attention_op as j_op
+from repro.kernels.flash_attention.kernel import flash_attention as j_kernel
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
                                                  flash_attention_op)
@@ -26,6 +31,12 @@ from repro_torch.kernels.flash_attention.ref import (NEG_INF,
                                                      merge_partials)
 
 torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 # (rtol, atol): bf16 outputs of two fp32 computations differ by at most
 # one rounding of the output, 2**-7 of its size; the reference's oracle
@@ -301,3 +312,110 @@ def test_cpu_tensors_count_no_path():
     _, (q, k, v) = _inputs(1, 4, 2, 16, 16, 32, "bfloat16", 3)
     flash_attention_op(q, k, v)
     assert sum(flash_attention.paths.values()) == 0
+
+
+# (B, H, K, Sq, Sk, sk_valid, q_offset, hd, causal): a decode step into a
+# preallocated cache (smollm-360m's heads), a chunk of queries, an
+# explicit q_offset, a cache with no valid key past the first, and a
+# non-causal call that only sk_valid masks
+SK_VALID = [
+    (2, 6, 2, 1, 64, 41, None, 32, True),
+    (1, 15, 5, 1, 128, 100, None, 64, True),
+    (1, 15, 5, 1, 64, 1, None, 64, True),
+    (1, 4, 2, 24, 128, 70, None, 32, True),
+    (1, 4, 2, 16, 64, 50, 10, 16, True),
+    (2, 6, 3, 8, 64, 33, None, 48, False),
+]
+
+
+def _cache_inputs(B, H, K, Sq, Sk, sk_valid, hd, seed):
+    """q, and k/v caches of Sk rows whose rows past sk_valid hold large
+    values: a kernel or plain version that read them would show it."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, Sq, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(B, K, Sk, hd)).astype(np.float32)
+            for _ in range(2))
+    for a in (k, v):
+        a[:, :, sk_valid:] = rng.normal(size=a[:, :, sk_valid:].shape) * 1e3
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,H,K,Sq,Sk,sk_valid,q_offset,hd,causal", SK_VALID)
+def test_sk_valid_matches_the_reference_kernel(B, H, K, Sq, Sk, sk_valid,
+                                               q_offset, hd, causal):
+    """``sk_valid`` and ``q_offset`` of the port's op against the
+    reference's Pallas kernel given the same arguments (interpret mode;
+    q padded to its block of 8 rows, q_offset passed explicitly), and,
+    with the default offset, against the reference's op over the first
+    sk_valid keys, which it pads and masks through its own sk_valid."""
+    q, k, v = _cache_inputs(B, H, K, Sq, Sk, sk_valid, hd, Sq * 100 + Sk)
+    off = sk_valid - Sq if q_offset is None else q_offset
+    got = flash_attention_op(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                             sk_valid=sk_valid, q_offset=q_offset).numpy()
+    assert np.isfinite(got).all()
+    pad = (-Sq) % 8
+    want = np.asarray(j_kernel(
+        jnp.asarray(np.pad(q, ((0, 0), (0, 0), (0, pad), (0, 0)))),
+        jnp.asarray(k), jnp.asarray(v), causal=causal, block_q=Sq + pad,
+        block_k=Sk // 2, sk_valid=sk_valid, q_offset=off,
+        interpret=True))[:, :, :Sq]
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    if q_offset is None:
+        sliced = np.asarray(j_op(jnp.asarray(q),
+                                 jnp.asarray(k[:, :, :sk_valid]),
+                                 jnp.asarray(v[:, :, :sk_valid]),
+                                 causal=causal, interpret=True))
+        np.testing.assert_allclose(got, sliced, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,H,K,Sq,Sk,sk_valid,q_offset,hd,causal",
+                         SK_VALID[:2] + SK_VALID[3:5])
+def test_sk_valid_in_the_paths_plain_versions(B, H, K, Sq, Sk, sk_valid,
+                                              q_offset, hd, causal):
+    """The "wgmma" and "decode" paths' plain arithmetic with sk_valid
+    equals the semantics over the first sk_valid keys."""
+    q, k, v = map(torch.from_numpy,
+                  _cache_inputs(B, H, K, Sq, Sk, sk_valid, hd, 7))
+    kw = dict(causal=causal, sk_valid=sk_valid, q_offset=q_offset)
+    want = attention_ref(q, k[:, :, :sk_valid], v[:, :, :sk_valid],
+                         causal=causal,
+                         q_offset=sk_valid - Sq if q_offset is None
+                         else q_offset)
+    np.testing.assert_allclose(attention_ref(q, k, v, **kw).numpy(),
+                               want.numpy(), atol=1e-6)
+    n, per = decode_splits(B, K, sk_valid)
+    np.testing.assert_allclose(
+        attention_split_ref(q, k, v, keys_per_split=per, **kw).numpy(),
+        want.numpy(), atol=2e-6)
+    bq, bk, bv = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = attention_bf16p_ref(bq, bk, bv, block_k=32, **kw)
+    assert float(bf16p_excess(got, bq, bk[:, :, :sk_valid].contiguous(),
+                              bv[:, :, :sk_valid].contiguous(),
+                              causal=causal,
+                              q_offset=sk_valid - Sq if q_offset is None
+                              else q_offset).max()) <= 1.0
+
+
+def test_sk_valid_bounds_and_path_choice():
+    q, k, v = (torch.zeros(1, 2, 1, 16), torch.zeros(1, 1, 8, 16),
+               torch.zeros(1, 1, 8, 16))
+    for bad in (-1, 9):
+        with pytest.raises(ValueError, match="sk_valid"):
+            flash_attention_op(q, k, v, sk_valid=bad)
+    # the kernel is chosen for the keys that count, not the cache's rows
+    assert path_for(torch.bfloat16, 16, 15, 5, 1, 4097, 64, True) == \
+        "decode"
+    assert decode_splits(16, 5, 4097) != decode_splits(16, 5, 32768)
+
+
+@pytest.mark.parametrize("row", chip_smoke.FLASH_ROWS,
+                         ids=lambda r: f"{r[0]}-{r[1]}x{r[4]}x{r[5]}-{r[9]}")
+def test_chip_smoke_rows_take_the_path_they_name(row):
+    """Each of ``chip_smoke.py``'s flash_attention rows is taken on the
+    path it names, decided at its ``sk_valid``; a row that gives
+    ``sk_valid`` leaves a last valid key inside the cache and no query
+    row without a key."""
+    label, B, H, K, Sq, Sk, sk_valid, hd, causal, dt, path = row
+    sv = Sk if sk_valid is None else sk_valid
+    assert path_for(getattr(torch, dt), B, H, K, Sq, sv, hd, causal) == path
+    assert Sq <= sv <= Sk

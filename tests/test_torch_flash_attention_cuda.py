@@ -190,3 +190,49 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         flash_attention(big, big, big)
     with pytest.raises(ValueError, match="device"):
         flash_attention_op(q, k.cpu(), v)
+
+
+# ---- sk_valid: a preallocated cache, partly filled --------------------------
+@pytest.mark.parametrize("B,H,K,Sq,Sk,sk_valid,q_offset,hd,causal,dtype,path", [
+    (16, 15, 5, 1, 4128, 4097, None, 64, True, "bfloat16", "decode"),
+    (2, 15, 5, 1, 1000, 1, None, 64, True, "bfloat16", "decode"),
+    (1, 8, 2, 1, 700, 333, None, 64, True, "float32", "decode"),
+    (2, 4, 2, 3, 900, 500, 200, 32, True, "bfloat16", "decode"),
+    (1, 15, 5, 300, 1024, 700, None, 64, True, "bfloat16", "wgmma"),
+    (1, 4, 2, 130, 512, 257, None, 128, True, "bfloat16", "wgmma"),
+    (1, 4, 2, 130, 512, 257, None, 64, False, "bfloat16", "wgmma"),
+    (1, 6, 2, 70, 512, 300, None, 48, True, "float32", "simt"),
+    (1, 6, 2, 70, 512, 300, 100, 48, True, "bfloat16", "simt"),
+    (2, 4, 4, 64, 256, 100, None, 32, False, "float32", "simt"),
+])
+def test_sk_valid_on_each_path(cuda, B, H, K, Sq, Sk, sk_valid, q_offset, hd,
+                               causal, dtype, path):
+    """Keys at or past sk_valid hold NaN: a path that read one would
+    return NaN.  Each path takes its keys' count, not the cache's rows,
+    and equals the plain version over the first sk_valid keys."""
+    q, k, v = _inputs(B, H, K, Sq, Sk, hd, dtype, cuda)
+    k[:, :, sk_valid:] = float("nan")
+    v[:, :, sk_valid:] = float("nan")
+    off = sk_valid - Sq if q_offset is None else q_offset
+    assert path_for(q.dtype, B, H, K, Sq, sk_valid, hd, causal) == path
+    launches = 2 if path == "decode" and \
+        decode_splits(B, K, sk_valid)[0] > 1 else 1
+    before, paths = flash_attention.launches, flash_attention.paths.copy()
+    got = flash_attention_op(q, k, v, causal=causal, sk_valid=sk_valid,
+                             q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + launches
+    paths[path] += 1
+    assert flash_attention.paths == paths
+    assert bool(got.isfinite().all())
+    ks, vs = k[:, :, :sk_valid].contiguous(), v[:, :, :sk_valid].contiguous()
+    want = attention_ref(q, ks, vs, causal=causal, q_offset=off)
+    if path == "wgmma":
+        share = bf16p_excess(got, q, ks, vs, causal=causal, plain=want,
+                             q_offset=off)
+        assert float(share.max()) <= 1.0, float(share.max())
+        return
+    rtol, atol = TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)

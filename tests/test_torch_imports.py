@@ -74,8 +74,12 @@ SERVING_SLICE = ("caching.dataplane", "caching.mmap_tier", "caching.warming",
 FLEET_SLICE = ("distrib", "distrib.checkpoint", "distrib.fault",
                "serve.fleet", "cli.cache")
 
+#: the CUDA-graph memo, the LM family and smollm-360m's config
+LM_SLICE = ("caching.compile_cache", "models.lm", "configs",
+            "configs.smollm_360m")
 
-@pytest.mark.parametrize("name", SERVING_SLICE + FLEET_SLICE)
+
+@pytest.mark.parametrize("name", SERVING_SLICE + FLEET_SLICE + LM_SLICE)
 def test_serving_slice_modules_are_listed_and_stand_alone(name):
     """Each module of the serving and fleet slices exists, and importing
     it alone in a fresh interpreter pulls in neither jax nor repro."""
@@ -104,7 +108,8 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
                          + [ROOT / "chip_smoke.py",
-                            ROOT / "tools" / "torch_profile_main_path.py"],
+                            ROOT / "tools" / "torch_profile_main_path.py",
+                            ROOT / "tools" / "torch_lm_bf16_drift.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
