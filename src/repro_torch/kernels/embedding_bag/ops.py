@@ -16,6 +16,11 @@ dtype and held at 1e-9 or more, as the reference's ops do:
 
 The reference pads d to a multiple of 128 for the TPU's lanes; that does
 not change the result, and the kernel needs no padding.
+
+The op has no backward, as the reference kernel has none: under grad
+mode, with the table or the weights requiring a gradient, it raises on
+both devices (the CUDA kernel's output is not tracked by autograd); a
+caller that differentiates a bag takes ``embedding_bag_ref``.
 """
 from __future__ import annotations
 
@@ -39,6 +44,12 @@ def embedding_bag_op(table: torch.Tensor, ids: torch.Tensor,
     if ids.device != table.device or (weights is not None
                                       and weights.device != table.device):
         raise ValueError("table, ids and weights must be on one device")
+    if torch.is_grad_enabled() and (table.requires_grad or (
+            weights is not None and weights.requires_grad)):
+        raise RuntimeError(
+            "embedding_bag_op has no backward (nor has the reference "
+            "kernel): under autograd use the plain version, "
+            "kernels.embedding_bag.ref.embedding_bag_ref")
     n_bags, d = ids.shape[0], table.shape[1]
     if n_bags == 0 or d == 0:
         return torch.zeros((n_bags, d), dtype=table.dtype,

@@ -12,6 +12,13 @@ padded rows off again; the kernel masks its ragged edges itself and
 needs no padding, which changes no row that has a valid key.  A decode
 step against a preallocated cache passes ``sk_valid`` = its filled
 length, so no slice of the cache is copied.
+
+The op has no backward: the reference kernel has none (no ``custom_vjp``
+in the JAX package) and the CUDA kernel writes into a tensor autograd
+does not track.  So under grad mode, with any of q, k, v requiring a
+gradient, it raises on both devices rather than drop the gradient on the
+card; a caller that differentiates attention takes the plain path
+(``models.lm``'s ``attention="plain"``, or ``attention_ref``).
 """
 from __future__ import annotations
 
@@ -30,6 +37,13 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype."""
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention_op has no backward (nor has the reference "
+            "kernel): under autograd use the plain attention, "
+            "models.lm's attention='plain' or "
+            "kernels.flash_attention.ref.attention_ref")
     if q.numel() == 0:
         return torch.zeros_like(q)
     if q.device.type == "cuda":

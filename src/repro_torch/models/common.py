@@ -17,14 +17,18 @@ from __future__ import annotations
 import hashlib
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["ParamSpec", "init_params", "abstract_params", "logical_axes_tree",
            "count_params", "params_digest", "params_from_numpy", "rms_norm",
-           "rope", "shard_act"]
+           "rope", "shard_act", "he_init", "lecun_init", "embed_init",
+           "zeros_init", "ones_init", "load_weights"]
 
 
 @dataclass(frozen=True)
@@ -38,6 +42,13 @@ class ParamSpec:
     def __post_init__(self):
         if len(self.shape) != len(self.logical_axes):
             raise ValueError(f"{self.shape} vs {self.logical_axes}")
+
+
+he_init = partial(ParamSpec, init="he")
+lecun_init = partial(ParamSpec, init="lecun")
+embed_init = partial(ParamSpec, init="embed")
+zeros_init = partial(ParamSpec, init="zeros")
+ones_init = partial(ParamSpec, init="ones")
 
 
 def _std(spec: ParamSpec) -> float:
@@ -79,17 +90,19 @@ def init_params(specs: Dict, generator: torch.Generator,
     """Materialise a spec tree.  Draws on the generator's device (the
     CPU for a default ``torch.Generator``) in sorted-key order, then
     moves each tensor to ``device``, so the weights do not depend on
-    the device they land on."""
-    vals = []
+    the device they land on.  A CUDA generator draws on the card, which
+    keeps multi-GB embedding tables off the host."""
+    vals, gdev = [], generator.device
     for path, spec in _leaves(specs):
         if spec.init == "zeros":
-            t = torch.zeros(spec.shape, dtype=spec.dtype)
+            t = torch.zeros(spec.shape, dtype=spec.dtype, device=device)
         elif spec.init == "ones":
-            t = torch.ones(spec.shape, dtype=spec.dtype)
+            t = torch.ones(spec.shape, dtype=spec.dtype, device=device)
         else:
-            t = (torch.randn(spec.shape, generator=generator,
-                             dtype=torch.float32) * _std(spec)).to(spec.dtype)
-        vals.append((path, t.to(device)))
+            t = torch.randn(spec.shape, generator=generator, device=gdev,
+                            dtype=torch.float32)
+            t = t.mul_(_std(spec)).to(device=device, dtype=spec.dtype)
+        vals.append((path, t))
     return _unflatten(vals)
 
 
@@ -124,6 +137,23 @@ def params_from_numpy(tree: Dict, device: Union[str, torch.device]) -> Dict:
     arrays of ``ml_dtypes`` included)."""
     return _unflatten((path, _tensor_of(leaf).to(device))
                       for path, leaf in _leaves(tree))
+
+
+def load_weights(specs: Dict, seed: int = 0, *,
+                 params: Optional[Dict] = None,
+                 device: Union[str, torch.device, None] = None
+                 ) -> Tuple[Dict, Tuple]:
+    """(weights on the device, their source) for a spec tree: ``params``,
+    a nested dict of numpy arrays in the reference's layout, bridged
+    with ``params_from_numpy`` (source ``("numpy-sha256", digest)``);
+    without it, drawn from ``torch.Generator().manual_seed(seed)`` on
+    the host (source ``("torch.Generator", seed)``)."""
+    dev = resolve_device(device)
+    if params is None:
+        return (init_params(specs, torch.Generator().manual_seed(seed), dev),
+                ("torch.Generator", int(seed)))
+    return (params_from_numpy(params, dev),
+            ("numpy-sha256", params_digest(params)))
 
 
 def params_digest(tree: Dict) -> str:

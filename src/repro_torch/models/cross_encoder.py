@@ -35,10 +35,8 @@ from ..caching import compile_cache
 from ..caching.bucketing import BucketedRunner
 from ..core.frame import ColFrame
 from ..core.pipeline import Transformer, add_ranks
-from ..device import resolve_device
 from ..ir.tokenizer import HashTokenizer
-from .common import (ParamSpec, init_params, params_digest,
-                     params_from_numpy, rms_norm)
+from .common import ParamSpec, load_weights, rms_norm
 
 __all__ = ["EncoderConfig", "encoder_param_specs", "encoder_pooled",
            "encoder_score", "Encoder", "MonoScorer", "DuoScorer"]
@@ -135,15 +133,9 @@ class Encoder(nn.Module):
                  params: Optional[Dict] = None,
                  device: Union[str, torch.device, None] = None):
         super().__init__()
-        dev = resolve_device(device)
         self.cfg = cfg
-        if params is None:
-            tree = init_params(encoder_param_specs(cfg),
-                               torch.Generator().manual_seed(seed), dev)
-            self.weight_source: Tuple = ("torch.Generator", int(seed))
-        else:
-            tree = params_from_numpy(params, dev)
-            self.weight_source = ("numpy-sha256", params_digest(params))
+        tree, self.weight_source = load_weights(
+            encoder_param_specs(cfg), seed, params=params, device=device)
         frozen = lambda d: nn.ParameterDict(      # noqa: E731
             {k: nn.Parameter(v, requires_grad=False) for k, v in d.items()})
         self.top = frozen({k: v for k, v in tree.items() if k != "layers"})

@@ -50,8 +50,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention_op
-from .common import (ParamSpec, count_params, init_params, params_digest,
-                     params_from_numpy, rms_norm, rope)
+from .common import ParamSpec, count_params, load_weights, rms_norm, rope
 
 __all__ = ["LMConfig", "param_specs", "load_params", "forward",
            "causal_lm_loss", "prefill", "decode_one", "init_cache_specs",
@@ -191,14 +190,9 @@ def load_params(cfg: LMConfig, seed: int = 0, *,
     dict of numpy arrays in the reference's layout (bridged with
     ``params_from_numpy``, dtypes kept, the router's fp32 included);
     without it the weights are drawn from
-    ``torch.Generator().manual_seed(seed)``."""
-    dev = resolve_device(device)
-    if params is None:
-        return (init_params(param_specs(cfg),
-                            torch.Generator().manual_seed(seed), dev),
-                ("torch.Generator", int(seed)))
-    return (params_from_numpy(params, dev),
-            ("numpy-sha256", params_digest(params)))
+    ``torch.Generator().manual_seed(seed)`` (``common.load_weights``)."""
+    return load_weights(param_specs(cfg), seed, params=params,
+                        device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -78,8 +78,17 @@ FLEET_SLICE = ("distrib", "distrib.checkpoint", "distrib.fault",
 LM_SLICE = ("caching.compile_cache", "models.lm", "configs",
             "configs.smollm_360m")
 
+#: the recsys and GCN families, their configs, and the training stack
+TRAIN_SLICE = ("models", "models.recsys", "models._jax_threefry",
+               "models.gcn", "configs.mind", "configs.dlrm_rm2",
+               "configs.dcn_v2", "configs.two_tower_retrieval",
+               "configs.gcn_cora", "distrib.compression", "train",
+               "train.schedule", "train.optimizer", "train.loop", "data",
+               "data.pipeline")
 
-@pytest.mark.parametrize("name", SERVING_SLICE + FLEET_SLICE + LM_SLICE)
+
+@pytest.mark.parametrize("name", SERVING_SLICE + FLEET_SLICE + LM_SLICE
+                         + TRAIN_SLICE)
 def test_serving_slice_modules_are_listed_and_stand_alone(name):
     """Each module of the serving and fleet slices exists, and importing
     it alone in a fresh interpreter pulls in neither jax nor repro."""
@@ -109,7 +118,8 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
                          + [ROOT / "chip_smoke.py",
                             ROOT / "tools" / "torch_profile_main_path.py",
-                            ROOT / "tools" / "torch_lm_bf16_drift.py"],
+                            ROOT / "tools" / "torch_lm_bf16_drift.py",
+                            ROOT / "examples" / "train_reranker_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
