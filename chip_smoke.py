@@ -123,10 +123,25 @@ Phases, one output line or more each, the JSON result last:
    on both), 100 steps, the trained scorer in
    the Experiment (nDCG@10, MAP; scores equal ``encoder_score`` of the
    trained weights exactly; its own ``fingerprint_extras``);
-14. the ``kernels`` JSON line (``flash_attention``'s launches are the
-   lm phase's smollm-360m runs, the tiny MoE's printed apart;
-   ``embedding_bag``'s include the recsys phase's; ``cachekey_hash``'s
-   the train phase's plan), then ``{"ok": true, "device": ...}``.
+14. archs: qwen3-14b (hd 128, 40 heads over 8 KV heads, qk_norm) and
+   granite-moe-3b-a800m (40 experts, top 8) at their published width
+   and depth, weights drawn on the card by a CUDA ``torch.Generator``
+   and conditioned, each through the lm phase's prefill, 32 decode
+   steps and one step at 32,768 keys (B 4) against the plain attention,
+   with granite's dropped assignments, its routing flips and its MoE
+   layers' share of the device time; then ``python -m
+   repro_torch.launch.train``: smollm-360m's published config for 20
+   steps with checkpoints, resumed from step 10 (steps 10-19 against
+   the uninterrupted run's), and the five LM archs' tiny presets card
+   against CPU; then ``python -m repro_torch.launch.dryrun --all
+   --multi-pod both`` in a subprocess on the meta device (80 records,
+   exit 0; a line per family with its meta-run seconds and largest
+   per-device argument GB against 80 GB);
+15. the ``kernels`` JSON line (``flash_attention``'s launches are the
+   lm phase's smollm-360m runs and the archs phase's qwen3-14b and
+   granite runs, the tiny MoE's printed apart; ``embedding_bag``'s
+   include the recsys phase's; ``cachekey_hash``'s the train phase's
+   plan), then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the script exits non-zero.  Without a CUDA
 device, or outside a checkout, it exits 1 and prints no result.
@@ -178,6 +193,8 @@ TABLE2_SETTINGS = [(False, None), (True, None), (True, "cold"),
                    (True, "hot")]
 # (label, B, H, K, Sq, Sk, sk_valid, hd, causal, dtype, path): the
 # reference's flash_attention sweep (tests/test_kernels.py FLASH_SWEEP),
+# (the archs phase's qwen3-14b and granite-moe-3b-a800m rows are last:
+# hd 128 with a group of 5, and hd 64 with a group of 3),
 # the shapes of benchmarks/kernels_bench.py, then smollm-360m's heads
 # (configs/smollm_360m.py) at train_4k's length and a decode_32k step
 # (configs/base.py LM_SHAPES) at the config's batch and at one sequence,
@@ -222,8 +239,23 @@ FLASH_ROWS = [("sweep", 1, 2, 2, 64, 64, None, 32, True, "float32", "simt"),
               ("prefill into a cache", 1, 15, 5, 4096, 4128, 4100, 64, True,
                "bfloat16", "wgmma"),
               ("prefill into a cache f32", 1, 15, 5, 4096, 4128, 4100, 64,
-               True, "float32", "simt")]
+               True, "float32", "simt"),
+              ("qwen3-14b prefill", 1, 40, 8, 4096, 4096, None, 128, True,
+               "bfloat16", "wgmma"),
+              ("qwen3-14b first decode step", 1, 40, 8, 1, 4128, 4097, 128,
+               True, "bfloat16", "decode"),
+              ("qwen3-14b last decode step", 1, 40, 8, 1, 4128, 4128, 128,
+               True, "bfloat16", "decode"),
+              ("qwen3-14b decode_32k B=4", 4, 40, 8, 1, 32768, 32768, 128,
+               True, "bfloat16", "decode"),
+              ("granite prefill", 1, 24, 8, 4096, 4096, None, 64, True,
+               "bfloat16", "wgmma"),
+              ("granite decode step", 1, 24, 8, 1, 4128, 4097, 64, True,
+               "bfloat16", "decode")]
 FLASH_MAIN = "smollm-360m prefill"
+# the rows at a model's heads: each also shows that a kernel skipping a
+# tile of 64 keys would fail its bound
+MODEL_ROWS = ("smollm", "qwen3", "granite")
 # the values of the last valid key of a FLASH_ROWS row that gives
 # sk_valid: exact in bf16, large enough that a kernel one key short
 # fails, small enough that one skipping a tile of 64 keys fails too
@@ -834,7 +866,7 @@ def check_flash_attention(torch, card: str) -> dict:
                 f"{s_beyond} of {want.numel()} elements (max_abs_err "
                 f"{s_err:.3g}); a key past it is NaN")
             del short
-        if label.startswith("smollm") or sk_valid is not None:
+        if label.startswith(MODEL_ROWS) or sk_valid is not None:
             lo = sv // 2 // 64 * 64
             d_err, d_share, d_beyond = flash_within(
                 attention_skipping_tile(torch, q, ks, vs, causal, lo),
@@ -2093,6 +2125,16 @@ LM_PREFILL, LM_STEPS, LM_32K, LM_32K_BATCH = 4096, 32, 32768, 16
 LM_TOL = {"bfloat16": 2 ** -4, "float32": 1e-4}
 # the tests' tiny MoE config on the card against the CPU (fp32)
 LM_MOE_ATOL = 1e-4
+# the share of an MoE run's top-k picks that the pinned plain run would
+# have made otherwise (``routing``): where two experts' router scores
+# nearly tie, the two attentions' bf16 difference picks the other.
+# granite-moe-3b-a800m on one H100, six runs: 5.87-5.97 % of the
+# prefill's 1,048,576 picks, 5.42-5.87 % of 32 decode steps' 8,192, and
+# (five runs) 34.4-37.3 % of the step at 32,768 random keys' 1,024
+# (attention over that many random keys averages to near 0, and the
+# routers see nearly tied inputs).  A kernel fault reroutes nearly all:
+# the step with the wrong KV heads 997 of 1,024, printed beside it
+LM_FLIPS = {"prefill": 2 ** -3, "decode": 2 ** -3, "step": 2 ** -1}
 
 
 def conditioned(params: dict, cfg) -> dict:
@@ -2112,6 +2154,38 @@ def conditioned(params: dict, cfg) -> dict:
                                         / cfg.d_model))
         layers["wo"].mul_(1 / math.sqrt(cfg.n_heads))
     return params
+
+
+@contextlib.contextmanager
+def routing(torch, pinned: Optional[list] = None):
+    """Within the context ``models.lm``'s MoE layers record the experts
+    they pick (``.seen``, one [T, k] tensor a call), or, given ``pinned``
+    (such a list), take those experts in order, each with its own gate:
+    a plain-attention run then routes as the kernel's run did, so its
+    logits differ from it by the attention's rounding alone.  Top-k
+    routing is discontinuous: where two experts' scores nearly tie, the
+    two attention paths' bf16 difference picks another expert and moves
+    the logits far past LM_TOL (a random granite at 32,768 random keys:
+    0.78).  ``.flips`` counts the picks the pinned run would have made
+    otherwise.  Without MoE layers it changes nothing."""
+    from repro_torch.models import lm
+    orig = lm._top_k
+    state = SimpleNamespace(flips=0, seen=[])
+
+    def top_k(probs, k):
+        vals, idx = orig(probs, k)
+        if pinned is None:
+            state.seen.append(idx)
+            return vals, idx
+        want = pinned[len(state.seen)]
+        state.seen.append(want)
+        state.flips += int((want != idx).sum())
+        return probs.gather(-1, want), want
+    lm._top_k = top_k
+    try:
+        yield state
+    finally:
+        lm._top_k = orig
 
 
 def rel_err(got, want) -> float:
@@ -2167,6 +2241,199 @@ def kernel_share(torch, fn) -> tuple:
     return wall * 1e3, dev / 1e3, flash / 1e3
 
 
+def routed(tag: str, what: str, rec, pin) -> str:
+    """What a pinned plain run's line says, or nothing for a dense LM;
+    raises past the run's share of flipped picks (LM_FLIPS)."""
+    if not rec.seen:
+        return ""
+    picks = sum(t.numel() for t in rec.seen)
+    flips_within(tag, what, pin.flips, picks)
+    return f" (routed as the kernel's run: {pin.flips} of {picks:,} " \
+        f"picks would differ, {100 * pin.flips / picks:.2f} %, bound " \
+        f"{100 * LM_FLIPS[what]:.1f} %)"
+
+
+def flips_within(tag: str, what: str, flips: int, picks: int) -> None:
+    if not flips <= LM_FLIPS[what] * picks:
+        raise AssertionError(f"{tag}: {what}: {flips} of {picks} picks "
+                             f"routed otherwise (bound {LM_FLIPS[what]})")
+
+
+def lm_prefill(torch, card: str, tag: str, params: dict, cfg, tokens,
+               max_len: int) -> tuple:
+    """(logits, cache, launches) of a bf16 prefill of ``tokens`` into a
+    cache of ``max_len`` keys on the "wgmma" path, one launch a layer,
+    its logits against the port's plain attention at LM_TOL; prints the
+    launches, the error, the wall, the device time and the kernel's
+    share."""
+    from repro_torch.models import lm
+    B, S = tokens.shape
+    with routing(torch) as rec:
+        (logits, cache), n, paths = lm_counts(torch, lambda: lm.prefill(
+            params, tokens, cfg, max_len=max_len))
+    if paths != {"wgmma": cfg.n_layers} or n != cfg.n_layers:
+        raise AssertionError(f"{tag}: prefill launched {n} on {paths}")
+    with routing(torch, rec.seen) as pin:
+        plain, _ = lm.prefill(params, tokens, cfg, max_len=max_len,
+                              attention="plain")
+    err = rel_err(logits, plain)
+    if not err <= LM_TOL["bfloat16"]:
+        raise AssertionError(f"{tag}: prefill logits {err} from plain")
+    ms, dev, flash = kernel_share(torch, lambda: lm.prefill(
+        params, tokens, cfg, max_len=max_len))
+    pinned = routed(tag, "prefill", rec, pin)
+    log(f"{tag}: prefill B={B} S={S}: flash_attention {n} launches "
+        f"{paths}; logits vs plain attention{pinned} rel err {err:.3g} (tol "
+        f"{LM_TOL['bfloat16']:.3g}), max abs "
+        f"{float((logits - plain).abs().max()):.3g} of max |logit| "
+        f"{float(plain.abs().max()):.3g}; wall {ms:.2f} ms, device "
+        f"{dev:.2f} ms, flash_attention {flash:.3f} ms "
+        f"({100 * flash / dev:.2f} % of device); {card}")
+    return logits, cache, n
+
+
+def lm_decode_steps(torch, card: str, tag: str, params: dict, cfg, cache,
+                    logits, start: int, fault_err: Optional[float] = None
+                    ) -> int:
+    """LM_STEPS greedy decode steps from ``logits`` into ``cache`` at
+    positions ``start`` on, each on the "decode" path with sk_valid and
+    its logits against the same step through the plain attention
+    (LM_TOL); prints launches a step, errors, greedy agreement, a step's
+    wall and device time.  Returns the launches."""
+    from repro_torch.kernels.flash_attention.kernel import decode_splits
+    from repro_torch.models import lm
+    V = cfg.vocab_size
+    errs, step_paths, launches, agree = [], collections.Counter(), 0, 0
+    flips = picks = 0
+    tok = logits[:, :V].argmax(-1)
+    for i in range(LM_STEPS):
+        pos = start + i
+        with routing(torch) as rec:
+            (logits, _), n, paths = lm_counts(torch, lambda: lm.decode_one(
+                params, cache, tok, pos, cfg))
+        # the plain step writes this position's keys and values again:
+        # the kernel run's stay for the steps that follow
+        kept = [cache[name][:, :, :, pos].clone() for name in ("k", "v")]
+        with routing(torch, rec.seen) as pin:
+            plain, _ = lm.decode_one(params, cache, tok, pos, cfg,
+                                     attention="plain")
+        cache["k"][:, :, :, pos], cache["v"][:, :, :, pos] = kept
+        flips += pin.flips
+        picks += sum(t.numel() for t in rec.seen)
+        if sum(paths.values()) != cfg.n_layers or set(paths) != {"decode"}:
+            raise AssertionError(f"{tag}: decode step {i} took {paths}")
+        step_paths.update(paths)
+        launches += n
+        errs.append(rel_err(logits, plain))
+        agree += int(torch.equal(logits[:, :V].argmax(-1),
+                                 plain[:, :V].argmax(-1)))
+        tok = logits[:, :V].argmax(-1)
+    if not max(errs) <= LM_TOL["bfloat16"]:
+        raise AssertionError(f"{tag}: decode logits {max(errs)} from plain")
+    pos = start + LM_STEPS - 1
+    ms, dev, flash = kernel_share(torch, lambda: lm.decode_one(
+        params, cache, tok, pos, cfg))
+    B, K = tok.shape[0], cfg.n_kv_heads
+    fault = "" if fault_err is None else \
+        f"; a step whose heads read the wrong KV heads: {fault_err:.3g}"
+    if picks:
+        flips_within(tag, "decode", flips, picks)
+        fault += f"; the plain steps routed as the kernel's: {flips} of " \
+            f"{picks:,} picks would differ, {100 * flips / picks:.2f} %, " \
+            f"bound {100 * LM_FLIPS['decode']:.1f} %"
+    log(f"{tag}: {LM_STEPS} greedy decode steps, cache {cache['k'].shape[3]}"
+        f" keys, sk_valid {start + 1}-{start + LM_STEPS}: flash_attention "
+        f"{launches // LM_STEPS} launches a step ({cfg.n_layers} calls, "
+        f"{decode_splits(B, K, start + 1)[0]} splits each, decode + "
+        f"combine) {dict(step_paths)}; logits vs plain rel err max "
+        f"{max(errs):.3g} mean {statistics.mean(errs):.3g} (tol "
+        f"{LM_TOL['bfloat16']:.3g}{fault}); greedy token equal in "
+        f"{agree}/{LM_STEPS} steps; a step's wall {ms:.2f} ms, device "
+        f"{dev:.2f} ms, flash_attention {flash:.3f} ms "
+        f"({100 * flash / dev:.2f} % of device); {card}")
+    return launches
+
+
+def lm_step_at(torch, card: str, tag: str, params: dict, cfg, B: int,
+               S: int, gen, tol: float = LM_TOL["bfloat16"]) -> int:
+    """One decode step at the last position of a random cache of ``S``
+    keys at batch ``B``: each layer's ``flash_attention`` call against
+    the plain version of its own inputs at TOL_FLASH (the kernel rows'
+    bound), and the logits against the same step through the plain
+    attention at ``tol``; prints what decode_32k's batch of 128 would
+    need.  Returns the launches."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.models import lm
+    cache = lm.init_cache(cfg, B, S)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for name in ("k", "v"):
+        for li in range(cfg.n_layers):
+            cache[name][li].normal_(generator=g)
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen).cuda()
+    pos = S - 1
+    op, calls = lm.flash_attention_op, []
+
+    def checked(q, k, v, **kw):
+        out = op(q, k, v, **kw)
+        want = attention_ref(q, k, v, causal=kw["causal"],
+                             sk_valid=kw["sk_valid"])
+        calls.append(flash_within(out, want, "bfloat16", "decode", q, k, v,
+                                  kw["causal"]))
+        return out
+    lm.flash_attention_op = checked
+    try:
+        with routing(torch) as rec:
+            (logits, _), n, paths = lm_counts(torch, lambda: lm.decode_one(
+                params, cache, tok, pos, cfg))
+    finally:
+        lm.flash_attention_op = op
+    with routing(torch, rec.seen) as pin:
+        plain, _ = lm.decode_one(params, cache, tok, pos, cfg,
+                                 attention="plain")
+    if paths != {"decode": cfg.n_layers}:
+        raise AssertionError(f"{tag}: the {S}-key step took {paths}")
+    beyond = sum(c[2] for c in calls)
+    if len(calls) != cfg.n_layers or beyond:
+        raise AssertionError(f"{tag}: {S}-key step: {beyond} attention "
+                             f"outputs beyond the kernel's bound in "
+                             f"{len(calls)} calls")
+    err = rel_err(logits, plain)
+    # the same step with every query head reading the wrong KV heads
+    lm.flash_attention_op = lambda q, k, v, **kw: op(
+        q, k.roll(1, 1).contiguous(), v.roll(1, 1).contiguous(), **kw)
+    try:
+        with routing(torch, rec.seen) as wrong:
+            faulty, _ = lm.decode_one(params, cache, tok, pos, cfg)
+    finally:
+        lm.flash_attention_op = op
+    fault_err = rel_err(faulty, plain)
+    pinned = routed(tag, "step", rec, pin)
+    if pinned:
+        pinned = pinned[:-1] + f"; the wrong KV heads {wrong.flips})"
+    del faulty
+    if not err <= tol < fault_err:
+        raise AssertionError(f"{tag}: {S}-key decode logits {err} from "
+                             f"plain (tol {tol}; the wrong KV heads "
+                             f"{fault_err})")
+    ms, dev, flash = kernel_share(torch, lambda: lm.decode_one(
+        params, cache, tok, pos, cfg))
+    per_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    log(f"{tag}: decode step at {S} keys, B={B} (decode_32k's batch 128 "
+        f"cut to {B}: its KV cache, {per_token:,} bytes a token, would take "
+        f"{per_token * 128 * S / 1e9:.0f} GB, this one "
+        f"{2 * cache['k'].numel() * 2 / 1e9:.1f} GB): flash_attention {n} "
+        f"launches {paths}, each layer's output within the kernel bound "
+        f"(largest share {max(c[1] for c in calls):.3g}, max_abs_err "
+        f"{max(c[0] for c in calls):.3g}); logits vs plain attention"
+        f"{pinned} rel err {err:.3g} (tol {tol:.3g}; the wrong KV "
+        f"heads {fault_err:.3g}); wall "
+        f"{ms:.2f} ms, device {dev:.2f} ms, flash_attention {flash:.3f} ms "
+        f"({100 * flash / dev:.2f} % of device); {card}")
+    del cache, plain, logits
+    torch.cuda.empty_cache()
+    return n
+
+
 def run_lm(torch, card: str) -> dict:
     """smollm-360m at full width and depth, random bf16 weights from
     ``torch.Generator``: a prefill of B 1 x S 4,096 (the "wgmma" path),
@@ -2195,29 +2462,8 @@ def run_lm(torch, card: str) -> dict:
     V = CONFIG.vocab_size
     tokens = torch.randint(0, V, (1, LM_PREFILL), generator=gen).cuda()
     max_len = LM_PREFILL + LM_STEPS
-    launches = 0
-
-    # prefill, B 1 x S 4,096
-    (logits, cache), n, paths = lm_counts(torch, lambda: lm.prefill(
-        params, tokens, CONFIG, max_len=max_len))
-    if paths != {"wgmma": CONFIG.n_layers} or n != CONFIG.n_layers:
-        raise AssertionError(f"lm: prefill launched {n} on {paths}")
-    launches += n
-    plain, _ = lm.prefill(params, tokens, CONFIG, max_len=max_len,
-                          attention="plain")
-    err = rel_err(logits, plain)
-    if not err <= LM_TOL["bfloat16"]:
-        raise AssertionError(f"lm: prefill logits {err} from plain")
-    pre_ms, pre_dev, pre_flash = kernel_share(torch, lambda: lm.prefill(
-        params, tokens, CONFIG, max_len=max_len))
-    log(f"lm: prefill B=1 S={LM_PREFILL}: flash_attention {n} launches "
-        f"{paths}; logits vs plain attention rel err {err:.3g} (tol "
-        f"{LM_TOL['bfloat16']:.3g}), max abs {float((logits - plain).abs().max()):.3g}"
-        f" of max |logit| {float(plain.abs().max()):.3g}; wall "
-        f"{pre_ms:.2f} ms, device {pre_dev:.2f} ms, flash_attention "
-        f"{pre_flash:.3f} ms ({100 * pre_flash / pre_dev:.2f} % of device); "
-        f"{card}")
-    del plain
+    logits, cache, launches = lm_prefill(torch, card, "lm", params, CONFIG,
+                                         tokens, max_len)
 
     # a wiring fault for scale: a decode step whose query heads read the
     # wrong KV heads (rolled by one).  A fault of a single key does not
@@ -2242,74 +2488,13 @@ def run_lm(torch, card: str) -> dict:
     del fault_cache, faulty, plain
 
     # 32 greedy decode steps into the 4,128-key cache
-    errs, step_paths, step_launches, agree = [], collections.Counter(), 0, 0
-    tok = logits[:, :V].argmax(-1)
-    for i in range(LM_STEPS):
-        pos = LM_PREFILL + i
-        plain, _ = lm.decode_one(params, cache, tok, pos, CONFIG,
-                                 attention="plain")
-        (logits, _), n, paths = lm_counts(torch, lambda: lm.decode_one(
-            params, cache, tok, pos, CONFIG))
-        if sum(paths.values()) != CONFIG.n_layers or set(paths) != {"decode"}:
-            raise AssertionError(f"lm: decode step {i} took {paths}")
-        step_paths.update(paths)
-        step_launches += n
-        errs.append(rel_err(logits, plain))
-        agree += int(torch.equal(logits[:, :V].argmax(-1),
-                                 plain[:, :V].argmax(-1)))
-        tok = logits[:, :V].argmax(-1)
-    launches += step_launches
-    if not max(errs) <= LM_TOL["bfloat16"]:
-        raise AssertionError(f"lm: decode logits {max(errs)} from plain")
-    pos = LM_PREFILL + LM_STEPS - 1
-    dec_ms, dec_dev, dec_flash = kernel_share(torch, lambda: lm.decode_one(
-        params, cache, tok, pos, CONFIG))
-    from repro_torch.kernels.flash_attention.kernel import decode_splits
-    log(f"lm: {LM_STEPS} greedy decode steps, cache {max_len} keys, "
-        f"sk_valid {LM_PREFILL + 1}-{max_len}: flash_attention "
-        f"{step_launches // LM_STEPS} launches a step ({CONFIG.n_layers} "
-        f"calls, {decode_splits(1, 5, LM_PREFILL + 1)[0]} splits each, "
-        f"decode + combine) {dict(step_paths)}; logits vs plain rel err "
-        f"max {max(errs):.3g} mean {statistics.mean(errs):.3g} (tol "
-        f"{LM_TOL['bfloat16']:.3g}; a step whose heads read the wrong KV "
-        f"heads: {fault_err:.3g}); greedy "
-        f"token equal in {agree}/{LM_STEPS} steps; a step's wall "
-        f"{dec_ms:.2f} ms, device {dec_dev:.2f} ms, flash_attention "
-        f"{dec_flash:.3f} ms ({100 * dec_flash / dec_dev:.2f} % of device); "
-        f"{card}")
-    del cache, plain
+    launches += lm_decode_steps(torch, card, "lm", params, CONFIG, cache,
+                                logits, LM_PREFILL, fault_err)
+    del cache
 
     # one step at decode_32k's cache length, B 16
-    B = LM_32K_BATCH
-    cache = lm.init_cache(CONFIG, B, LM_32K)
-    g = torch.Generator(device="cuda").manual_seed(12)
-    for name in ("k", "v"):
-        for li in range(CONFIG.n_layers):
-            cache[name][li].normal_(generator=g)
-    tok = torch.randint(0, V, (B,), generator=gen).cuda()
-    pos = LM_32K - 1
-    plain, _ = lm.decode_one(params, cache, tok, pos, CONFIG,
-                             attention="plain")
-    (logits, _), n, paths = lm_counts(torch, lambda: lm.decode_one(
-        params, cache, tok, pos, CONFIG))
-    if paths != {"decode": CONFIG.n_layers}:
-        raise AssertionError(f"lm: the 32k step took {paths}")
-    launches += n
-    err = rel_err(logits, plain)
-    if not err <= LM_TOL["bfloat16"]:
-        raise AssertionError(f"lm: 32k decode logits {err} from plain")
-    k_ms, k_dev, k_flash = kernel_share(torch, lambda: lm.decode_one(
-        params, cache, tok, pos, CONFIG))
-    log(f"lm: decode step at {LM_32K} keys, B={B} (decode_32k's batch 128 "
-        f"cut to {B}: its KV cache would take "
-        f"{2 * CONFIG.n_layers * 128 * LM_32K * 5 * 64 * 2 / 1e9:.0f} GB, "
-        f"this one {2 * cache['k'].numel() * 2 / 1e9:.1f} GB): "
-        f"flash_attention {n} launches {paths}; logits vs plain rel err "
-        f"{err:.3g}; wall {k_ms:.2f} ms, device {k_dev:.2f} ms, "
-        f"flash_attention {k_flash:.3f} ms ({100 * k_flash / k_dev:.2f} % of "
-        f"device); {card}")
-    del cache, plain, logits
-    torch.cuda.empty_cache()
+    launches += lm_step_at(torch, card, "lm", params, CONFIG, LM_32K_BATCH,
+                           LM_32K, gen)
 
     # the prefill in fp32: the "simt" path
     cfg32 = replace(CONFIG, dtype=torch.float32)
@@ -3000,6 +3185,368 @@ def run_train(torch, card: str) -> None:
     log(f"train: phase wall {time.perf_counter() - t0:.1f} s; {card}")
 
 
+# -- the archs phase ----------------------------------------------------------
+
+#: the dry run: 10 archs x 4 shapes on the two production meshes, each
+#: record's per-device argument bytes against the card's memory
+DRYRUN_RECORDS, CARD_GB = 80, 80
+#: granite's step at 32,768 random keys is held to a bound of its own.
+#: Both bf16 paths drift from an fp32 run of the same weights, routing
+#: pinned to the kernel run's, and the drift grows with depth: the
+#: residual stream's bf16 rounding, not the attention (each attention
+#: call is held to the kernel's bound).  ``tools/torch_lm_bf16_drift.py
+#: --arch granite-moe-3b-a800m --keys 32768 --batch 4 --inits
+#: conditioned`` on one H100 (seeds 0 / 1): kernel path vs fp32 at 1, 8
+#: and 32 layers 0.89 / 0.85, 3.4 / 3.3 and 12.7 / 10.8 %, plain path vs
+#: fp32 0.93 / 0.92, 3.6 / 4.1 and 13.8 / 13.2 %, the two paths 15.1 /
+#: 11.4 % apart at 32; on the CPU at 4,096 keys, 1 / 2 / 4 layers, the
+#: paths 0.99 / 1.6 / 2.4 % apart.  This phase reads 13-15 % at 32 (five
+#: runs).  2**-2; the step with its query heads reading the wrong KV
+#: heads must land past it (the line prints how far)
+LM_32K_TOL = {"granite-moe-3b-a800m": 2 ** -2}
+#: qwen3-14b's and granite's one step at 32,768 keys: at B 4 qwen3's
+#: cache takes 21.5 GB (163,840 bytes a token) beside its 29.5 GB of
+#: weights, where decode_32k's batch of 128 would need 687 GB
+ARCH_32K_BATCH = 4
+#: ``python -m repro_torch.launch.train`` on the card: smollm-360m at its
+#: published widths, 20 steps at batch 8 x 512 tokens with a checkpoint
+#: every 10; then the same command over the directory without its last
+#: checkpoint resumes at step 10
+TRAIN_FULL = ["--arch", "smollm-360m", "--preset", "full", "--steps", "20",
+              "--batch", "8", "--seq", "512", "--ckpt-every", "10"]
+#: the restarted run's losses at steps 10-19 against the uninterrupted
+#: run's: the same state (checkpoints hold every leaf exactly, bf16 as
+#: fp32) and the same step-keyed batches through the same kernels should
+#: repeat them bit for bit; held to 1e-6 relative (fp32 loss rounding is
+#: 6e-8), which a restart that lost the AdamW moments would exceed
+RESTART_RTOL = 1e-6
+#: the five LM archs' tiny presets (fp32, TF32 off), three steps each,
+#: card against CPU, every step's loss to 1e-5 relative.  Steps 0 and 1
+#: are forwards of the same weights (the schedule's lr is 0 at step 0);
+#: step 2 follows one AdamW update at lr 1.5e-5.  qwen1.5-110b's preset
+#: (QKV bias, no qk_norm) keeps the reference init's saturated attention
+#: (ROADMAP Queue C, reference item 8): gradient norms of 160-1,250 and
+#: gradients through q and k that two fp32 evaluations do not repeat;
+#: AdamW's first update moves an element whose gradient is noise by a
+#: full lr either way, so its card and CPU runs part by 1.01e-4 at step 2
+#: (three runs on one H100; the other four archs by at most 1.82e-6), and
+#: its step 2 alone is held to 1e-3
+TINY_STEPS, TINY_RTOL = 3, 1e-5
+TINY_UPDATED_RTOL = {"qwen1.5-110b": 1e-3}
+
+
+def run_dryrun(build: Path) -> None:
+    """``python -m repro_torch.launch.dryrun --all --multi-pod both`` in
+    a subprocess (the meta device and the host's CPU, no card): exit 0,
+    DRYRUN_RECORDS records, no collective term, and a line per family
+    with its cells, their meta-run seconds and the largest per-device
+    argument GB against the card's 80 GB."""
+    import os
+    build.mkdir(exist_ok=True)
+    out = build / "dryrun_torch.jsonl"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--multi-pod", "both", "--out", str(out), "--quiet"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"archs: the dry run exited {proc.returncode}:"
+                             f"\n{proc.stdout[-4000:]}")
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    if len(recs) != DRYRUN_RECORDS:
+        raise AssertionError(f"archs: the dry run wrote {len(recs)} "
+                             f"records, not {DRYRUN_RECORDS}")
+    from repro_torch.configs import get_arch
+    fams = collections.defaultdict(list)
+    for r in recs:
+        if r["collective_bytes"] is not None:
+            raise AssertionError(f"archs: a collective term was derived: {r}")
+        fams[get_arch(r["arch"]).family].append(r)
+    for fam, rs in sorted(fams.items()):
+        big = max(rs, key=lambda r: r["argument_bytes"])
+        log(f"archs: dry run {fam}: {len(rs)} records of "
+            f"{len({(r['arch'], r['shape']) for r in rs})} cells on "
+            f"{sorted({r['mesh'] for r in rs})}, meta runs "
+            f"{sum(r['compile_s'] for r in rs):.1f} s, largest argument "
+            f"bytes per device {big['argument_bytes'] / 1e9:.2f} GB "
+            f"({big['arch']} {big['shape']} on {big['mesh']}) of "
+            f"{CARD_GB} GB")
+    log(f"archs: dry run: {len(recs)} records, exit 0, {wall:.1f} s "
+        f"(meta device, no card)")
+
+
+def attention_spread(torch, params: dict, cfg, tokens) -> tuple:
+    """(std of layer 0's causal attention scores, median top softmax
+    weight of its rows with at least half the keys) over ``tokens`` in
+    fp32: ~100 and > 0.99 is a saturated softmax."""
+    from dataclasses import replace
+
+    from repro_torch.models import common, lm
+    layer = {k: v.float() for k, v in lm._layer(params, 0).items()}
+    cfg32 = replace(cfg, dtype=torch.float32)
+    x = lm._embed(params, tokens).float()
+    q, k, _ = lm._qkv(common.rms_norm(x, layer["ln1"]), layer, cfg32)
+    S = tokens.shape[1]
+    pos = torch.arange(S, device=tokens.device)[None, :]
+    q, k = common.rope(q, pos, cfg.rope_base), common.rope(k, pos,
+                                                          cfg.rope_base)
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    scores = torch.einsum("bqkgh,bskh->bkgqs",
+                          q.reshape(1, S, K, cfg.n_heads // K, hd), k) \
+        / math.sqrt(hd)
+    keep = lm._keep(pos[0], pos[0], None)
+    top = torch.softmax(scores.masked_fill(~keep, float("-inf")), -1) \
+        .amax(-1)[..., S // 2:]
+    return float(scores[..., keep].std()), float(top.median())
+
+
+@contextlib.contextmanager
+def moe_watch(torch, count: bool):
+    """Within the context every MoE layer of ``models.lm`` runs under a
+    ``record_function("moe_ffn")`` range, whose device time the profiler
+    reports, and with ``count`` also counts the (token, expert)
+    assignments its capacity drops (``drops``, one count a call; the
+    count routes the tokens again, so time nothing with it on)."""
+    from repro_torch.models import lm
+    orig, drops = lm._moe_ffn, []
+
+    def watched(x, layer, cfg_):
+        if count:
+            xt = x.reshape(-1, x.shape[-1])
+            probs = torch.softmax(torch.einsum("td,de->te", xt.float(),
+                                               layer["router"]), dim=-1)
+            _, experts = lm._top_k(probs, cfg_.top_k)
+            flat = experts.reshape(-1)
+            counts = torch.zeros(cfg_.n_experts, dtype=flat.dtype,
+                                 device=flat.device).scatter_add_(
+                0, flat, torch.ones_like(flat))
+            C = lm.moe_capacity(cfg_, xt.shape[0])
+            drops.append((counts - C).clamp(min=0).sum())
+        with torch.profiler.record_function("moe_ffn"):
+            return orig(x, layer, cfg_)
+    lm._moe_ffn = watched
+    try:
+        yield drops
+    finally:
+        lm._moe_ffn = orig
+
+
+def range_share(torch, fn, name: str) -> tuple:
+    """(device ms of one call of ``fn``, device ms of the kernels the
+    profiler puts under ``record_function(name)`` ranges).  The device
+    timeline also carries each range as an annotation spanning its
+    kernels (and the host's gaps between them): left out of the sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = inner = 0.0
+    for e in prof.key_averages():
+        if e.key == name and e.device_type != DeviceType.CUDA:
+            inner += float(getattr(e, "device_time_total", 0.0))
+        elif e.device_type == DeviceType.CUDA and e.key != name:
+            dev += float(getattr(e, "self_device_time_total", 0.0))
+    return dev / 1e3, inner / 1e3
+
+
+def arch_on_card(torch, card: str, name: str) -> int:
+    """One LM of the registry at its published width and depth: random
+    bf16 weights drawn on the card by a CUDA ``torch.Generator``, layer
+    0's attention spread with the reference's init and conditioned
+    (``conditioned``), then the lm phase's prefill of B 1 x S 4,096,
+    LM_STEPS greedy decode steps and one step at 32,768 keys and B
+    ARCH_32K_BATCH, each through ``flash_attention`` against the plain
+    attention at LM_TOL; for an MoE, the (token, expert) assignments
+    capacity drops and the MoE layers' share of the device time.
+    Returns ``flash_attention``'s launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.common import _leaves, init_params
+    cfg = get_arch(name).config
+    tag = f"archs: {name}"
+    t = time.perf_counter()
+    params = init_params(lm.param_specs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    gen = torch.Generator().manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_PREFILL),
+                           generator=gen).cuda()
+    ref_spread = attention_spread(torch, params, cfg, tokens[:, :512])
+    conditioned(params, cfg)
+    spread = attention_spread(torch, params, cfg, tokens[:, :512])
+    n_bytes = sum(v.numel() * v.element_size() for _, v in _leaves(params))
+    log(f"{tag}: {lm.num_params(cfg):,} params ({n_bytes / 1e9:.2f} GB in "
+        f"bf16), L {cfg.n_layers} d {cfg.d_model} H {cfg.n_heads} K "
+        f"{cfg.n_kv_heads} hd {cfg.head_dim} vocab {cfg.vocab_size}"
+        f"{' qk_norm' if cfg.qk_norm else ''}"
+        f"{f' experts {cfg.n_experts} top {cfg.top_k}' if cfg.is_moe else ''}"
+        f", drawn on the card in {time.perf_counter() - t:.1f} s; layer 0 "
+        f"over 512 tokens: scores std {ref_spread[0]:.3g}, median top "
+        f"weight {ref_spread[1]:.3g} with the reference's init, "
+        f"{spread[0]:.3g} / {spread[1]:.3g} conditioned")
+    max_len = LM_PREFILL + LM_STEPS
+    logits, cache, launches = lm_prefill(torch, card, tag, params, cfg,
+                                         tokens, max_len)
+    if cfg.is_moe:
+        with moe_watch(torch, count=True) as drops:
+            lm.prefill(params, tokens, cfg, max_len=max_len)
+        pre_drops = int(sum(int(d) for d in drops))
+        by_layer = [int(d) for d in drops]
+        with moe_watch(torch, count=False):
+            dev, moe = range_share(torch, lambda: lm.prefill(
+                params, tokens, cfg, max_len=max_len), "moe_ffn")
+        log(f"{tag}: the prefill's MoE layers: capacity "
+            f"{lm.moe_capacity(cfg, LM_PREFILL)} a expert, {pre_drops} of "
+            f"{cfg.n_layers * LM_PREFILL * cfg.top_k:,} (token, expert) "
+            f"assignments dropped (by layer {by_layer}); the MoE layers "
+            f"(route, dispatch, "
+            f"experts, combine) {moe:.2f} ms of {dev:.2f} ms device "
+            f"({100 * moe / dev if dev else 0:.1f} %; 0 where the profiler "
+            f"gave the range no device time); {card}")
+    launches += lm_decode_steps(torch, card, tag, params, cfg, cache,
+                                logits, LM_PREFILL)
+    if cfg.is_moe:
+        pos = LM_PREFILL + LM_STEPS - 1
+        tok = logits[:, :cfg.vocab_size].argmax(-1)
+        with moe_watch(torch, count=False):
+            dev, moe = range_share(torch, lambda: lm.decode_one(
+                params, cache, tok, pos, cfg), "moe_ffn")
+        log(f"{tag}: a decode step's MoE layers (one token: {cfg.top_k} "
+            f"distinct experts under a capacity of "
+            f"{lm.moe_capacity(cfg, 1)}, none dropped) {moe:.2f} ms of "
+            f"{dev:.2f} ms device ({100 * moe / dev if dev else 0:.1f} %); "
+            f"{card}")
+    del cache, logits
+    torch.cuda.empty_cache()
+    launches += lm_step_at(torch, card, tag, params, cfg, ARCH_32K_BATCH,
+                           LM_32K, gen,
+                           LM_32K_TOL.get(name, LM_TOL["bfloat16"]))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_run(torch, argv: list) -> tuple:
+    """((params, opt), metrics log, wall s, peak GB) of one
+    ``repro_torch.launch.train.main(argv)``."""
+    from repro_torch.launch import train as launch_train
+    dev = "cpu" if "cpu" in argv else "cuda"
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):    # its own print lines
+        state, metrics = launch_train.main(argv)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0
+    return state, metrics, wall, peak
+
+
+def check_train_launcher(torch, card: str) -> None:
+    """``python -m repro_torch.launch.train`` on the card: smollm-360m's
+    published config for 20 steps with a checkpoint every 10, then the
+    same command resumed from step 10 (its losses at steps 10-19 against
+    the uninterrupted run's, RESTART_RTOL); then ``--preset tiny`` of
+    each of the five LM archs for TINY_STEPS steps on the card against
+    the CPU (TINY_RTOL, TINY_UPDATED_RTOL)."""
+    from repro_torch.configs import ARCHS
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="train-launcher-", dir=str(build)))
+    try:
+        argv = TRAIN_FULL + ["--ckpt-dir", str(ckpt)]
+        _, first, wall, peak = train_run(torch, argv)
+        losses = [e["loss"] for e in first]
+        steps = len(losses)
+        if sorted(p.name for p in ckpt.iterdir()) != ["step_10", "step_20"] \
+                or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"archs: train launcher: checkpoints "
+                                 f"{sorted(p.name for p in ckpt.iterdir())},"
+                                 f" losses {losses}")
+        saved = sum(f.stat().st_size for f in ckpt.rglob("*")) / 2e9
+        log(f"archs: launch/train.py smollm-360m --preset full, {steps} "
+            f"steps at batch 8 x 512 tokens, plain attention: losses "
+            f"{[round(x, 4) for x in losses]}; {1e3 * wall / steps:.1f} ms "
+            f"a step (the run's wall over its steps, its two checkpoint "
+            f"saves of {saved:.2f} GB each included), peak {peak:.2f} GB; "
+            f"{card}")
+        shutil.rmtree(ckpt / "step_20")
+        _, second, wall2, _ = train_run(torch, argv)
+        again = [e["loss"] for e in second]
+        if [e["step"] for e in second] != list(range(10, 20)):
+            raise AssertionError(f"archs: the relaunch ran steps "
+                                 f"{[e['step'] for e in second]}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(again, losses[10:]))
+        moved = min(abs(a - b) / abs(b) for a, b in zip(losses[10:],
+                                                        losses[:10]))
+        if not rel <= RESTART_RTOL:
+            raise AssertionError(f"archs: restarted losses {again} against "
+                                 f"{losses[10:]}: rel {rel}, tol "
+                                 f"{RESTART_RTOL}")
+        log(f"archs: the same command resumed from step_10: steps 10-19 "
+            f"losses {'equal bit for bit' if again == losses[10:] else ''}"
+            f" (largest relative difference {rel:.3g}, tol "
+            f"{RESTART_RTOL:.3g}; the losses of steps 0-9 lie at least "
+            f"{moved:.3g} from them); {1e3 * wall2 / len(again):.1f} ms a "
+            f"step; {card}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    # the same steps without checkpoints: the launcher reads every step's
+    # metrics, so the wall over the steps is a step's time
+    _, plain_log, wall, peak = train_run(torch, TRAIN_FULL[:-2])
+    dts = [1e3 * e["dt"] for e in plain_log]
+    log(f"archs: launch/train.py smollm-360m --preset full without "
+        f"checkpoints: a step {statistics.median(dts[1:]):.1f} ms (median "
+        f"of steps 1-{len(dts) - 1}; step 0 {dts[0]:.1f} ms), the run "
+        f"{wall:.1f} s with the weights' init, peak {peak:.2f} GB; {card}")
+    for name, arch in ARCHS.items():
+        if arch.family != "lm":
+            continue
+        args = ["--arch", name, "--preset", "tiny", "--steps",
+                str(TINY_STEPS), "--batch", "4", "--seq", "64"]
+        (p_gpu, _), gpu, wall, peak = train_run(torch, args)
+        (p_cpu, _), cpu, _, _ = train_run(torch, args + ["--device", "cpu"])
+        rel = [abs(g["loss"] - c["loss"]) / abs(c["loss"])
+               for g, c in zip(gpu, cpu)]
+        tol = [TINY_RTOL, TINY_RTOL, TINY_UPDATED_RTOL.get(name, TINY_RTOL)]
+        if len(gpu) != TINY_STEPS or not all(r <= t for r, t in zip(rel,
+                                                                    tol)):
+            raise AssertionError(f"archs: tiny {name}: card {gpu} vs cpu "
+                                 f"{cpu}: relative {rel}, tol {tol}")
+        log(f"archs: launch/train.py {name} --preset tiny, {TINY_STEPS} "
+            f"steps card vs CPU: losses {[round(e['loss'], 6) for e in gpu]}"
+            f", relative differences {[float(f'{r:.3g}') for r in rel]} "
+            f"(tol {tol}); {1e3 * wall / TINY_STEPS:.1f} ms a step, peak "
+            f"{peak:.3f} GB")
+
+
+def run_archs(torch, card: str) -> dict:
+    """The archs phase: qwen3-14b and granite-moe-3b-a800m at full width
+    and depth through ``flash_attention`` and the train launcher on the
+    card, then the dry run in a subprocess on the host's CPU (no card).
+    Returns ``flash_attention``'s launches by model."""
+    t = time.perf_counter()
+    launches = {}
+    for name in ("qwen3-14b", "granite-moe-3b-a800m"):
+        launches[name] = arch_on_card(torch, card, name)
+    check_train_launcher(torch, card)
+    log(f"archs: the card's work in {time.perf_counter() - t:.1f} s; "
+        f"{card}")
+    run_dryrun(ROOT / "build")
+    log(f"archs: phase wall {time.perf_counter() - t:.1f} s; {card}")
+    return launches
+
+
 def row_by_row_fingerprints(graph):
     """(node fingerprints, plan id) one ``digest_bytes`` at a time, as
     the reference computes them (its ``core/cost.py``
@@ -3180,7 +3727,16 @@ def main() -> int:
     log(f"train: in {time.perf_counter() - t:.1f} s, cachekey_hash "
         f"launches {train_hash} (the Experiment's plan), no other kernel")
 
-    # -- 14. result lines ---------------------------------------------------
+    # -- 14. archs: the dry run, qwen3-14b, granite, the train launcher ---
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    archs = run_archs(torch, card)
+    archs_flash = sum(archs.values())
+    log(f"archs: in {time.perf_counter() - t:.1f} s, flash_attention "
+        f"launches {json.dumps(archs)} (each counted from 0 just before a "
+        f"prefill or decode step and read just after), no other kernel")
+
+    # -- 15. result lines ---------------------------------------------------
     log(json.dumps({"kernels": [{
         "name": "dense_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/dense_topk/csrc/dense_topk.cu",
@@ -3202,7 +3758,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
-        **flash_entry, "launches": lm_run["launches"]}, {
+        **flash_entry, "launches": lm_run["launches"] + archs_flash}, {
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                   "embedding_bag.cu",

@@ -1,8 +1,8 @@
-"""Model configurations (counterpart of ``repro.configs``).
+"""Model configurations and the architecture registry (counterpart of
+``repro.configs``): each config module's ``CONFIG`` and ``ARCH``, the
+cell builders of the three families (``base``) and ``ARCHS``."""
+from .registry import ARCHS, get_arch, all_cells
+from .base import ArchDef, Cell, LM_SHAPES, GNN_SHAPES, RECSYS_SHAPES
 
-This package holds the ``CONFIG`` of smollm-360m, the four recsys models
-(dlrm-rm2, dcn-v2, mind, two-tower-retrieval) and gcn-cora, with the
-reference's values; ``configs/base.py``, the registry of architectures
-(``ARCH``) and the other LM configurations come with the port's
-launchers (ROADMAP Queue A).
-"""
+__all__ = ["ARCHS", "get_arch", "all_cells", "ArchDef", "Cell",
+           "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES"]

@@ -5,7 +5,10 @@
 values of ``repro.configs.dcn_v2``.
 """
 from ..models.recsys import CRITEO_VOCABS, RecsysConfig
+from .base import recsys_arch
 
 CONFIG = RecsysConfig(
     name="dcn-v2", kind="dcn", embed_dim=16, n_dense=13,
     vocab_sizes=CRITEO_VOCABS, n_cross_layers=3, deep_mlp=(1024, 1024, 512))
+
+ARCH = recsys_arch("dcn-v2", CONFIG, source="arXiv:2008.13535")

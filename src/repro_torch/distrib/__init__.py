@@ -1,6 +1,8 @@
-# Distribution runtime (counterpart of repro.distrib): checkpointing,
-# gradient compression and fault tolerance.  The reference's shardings
-# come with the port's distribution layer (meshes).
+# Distribution runtime (counterpart of repro.distrib): sharding rules,
+# checkpointing (with the elastic restore onto a DeviceMesh), gradient
+# compression and fault tolerance.
+from .shardings import (ShardingRules, DEFAULT_RULES, spec_for,
+                        tree_shardings, batch_axes, describe_tree_shardings)
 from .checkpoint import (Checkpointer, save_checkpoint, restore_checkpoint,
                          latest_step)
 from .compression import CompressionConfig, init_ef_state, compress_grads, \
@@ -8,7 +10,9 @@ from .compression import CompressionConfig, init_ef_state, compress_grads, \
 from .fault import (Preemption, RestartableLoop, RetryPolicy,
                     StragglerPolicy)
 
-__all__ = ["Checkpointer", "save_checkpoint", "restore_checkpoint",
-           "latest_step", "CompressionConfig", "init_ef_state",
-           "compress_grads", "wire_bytes", "RestartableLoop", "RetryPolicy",
-           "StragglerPolicy", "Preemption"]
+__all__ = ["ShardingRules", "DEFAULT_RULES", "spec_for", "tree_shardings",
+           "batch_axes", "describe_tree_shardings", "Checkpointer",
+           "save_checkpoint", "restore_checkpoint", "latest_step",
+           "CompressionConfig", "init_ef_state", "compress_grads",
+           "wire_bytes", "RestartableLoop", "RetryPolicy", "StragglerPolicy",
+           "Preemption"]

@@ -19,10 +19,14 @@ format, so either package restores the other's checkpoints:
   writes on a background thread; ``wait()`` joins before the next save.
 * **retention**: keep the newest ``keep`` checkpoints, delete older.
 
-Where the reference takes a pytree of JAX shardings to restore onto a
-mesh, ``restore`` takes one ``device=``: every leaf comes back as a
-tensor there (CUDA unless ``"cpu"``).  Resharding across devices waits
-for the port's distribution layer.
+``restore`` puts every leaf on one ``device=`` (CUDA unless ``"cpu"``).
+The elastic path is ``shardings=``, a tree shaped like ``like`` whose
+leaves are ``(DeviceMesh, placements)`` pairs (``None`` for a plain
+tensor): each such leaf comes back as a ``DTensor`` on the *current*
+mesh, whatever mesh saved it, as the reference's tree of
+``NamedSharding``s puts its leaves.  Every rank reads the whole leaf
+and keeps its own shard, so the restore needs no collective.  A
+``DTensor`` leaf is saved whole (``full_tensor()``).
 """
 from __future__ import annotations
 
@@ -114,11 +118,16 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s global value; any other tensor itself."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def _host(leaf: Any) -> Tuple[np.ndarray, str]:
     """(array to write, logical dtype name): numpy-less dtypes as
     float32."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = _whole(leaf).detach().cpu()
         name = _dtype_name(t.dtype)
         if t.dtype not in _NUMPY_DTYPES:
             return t.float().numpy(), name
@@ -133,7 +142,7 @@ def _host(leaf: Any) -> Tuple[np.ndarray, str]:
 def _snapshot(leaf: Any) -> Any:
     """A host copy the caller may not mutate afterwards."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return _whole(leaf).detach().to("cpu", copy=True)
     return np.array(leaf, copy=True)
 
 
@@ -170,13 +179,44 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> str:
     return final
 
 
+def _like_leaves(like: Any, other: Any) -> List[Any]:
+    """The nodes of ``other`` at ``like``'s leaves, walking ``like``'s
+    structure (so a ``(mesh, placements)`` pair stays one leaf)."""
+    out: List[Any] = []
+
+    def walk(node, o):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in _dict_keys(node):
+                walk(node[k], o[k])
+        elif _is_namedtuple(node):
+            for f in node._fields:
+                walk(getattr(node, f), getattr(o, f))
+        elif isinstance(node, (list, tuple)):
+            for v, ov in zip(node, o):
+                walk(v, ov)
+        else:
+            out.append(o)
+
+    walk(like, other)
+    return out
+
+
 def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
-                       device: Any = None) -> Tuple[Any, int]:
+                       device: Any = None,
+                       shardings: Any = None) -> Tuple[Any, int]:
     """Restore into the structure of ``like``: every leaf a tensor on
     ``device`` (CUDA unless ``"cpu"``), of the dtype of ``like``'s leaf
-    where that is a tensor, else of the recorded logical dtype.
-    Returns ``(tree, step)``."""
-    dev = resolve_device(device)
+    where that is a tensor, else of the recorded logical dtype; with
+    ``shardings`` (a tree like ``like`` of ``(DeviceMesh, placements)``
+    or ``None``), each leaf that has a pair a ``DTensor`` on that mesh
+    (on the mesh's device; ``device`` is then not needed).  Returns
+    ``(tree, step)``."""
+    shard_leaves = _like_leaves(like, shardings) if shardings is not None \
+        else None
+    dev = None if shard_leaves is not None and \
+        all(s is not None for s in shard_leaves) else resolve_device(device)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir!r}")
@@ -191,17 +231,24 @@ def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
                          f"{missing[:5]}...")
     restored = iter([
         _load_leaf(os.path.join(d, by_name[name]["file"]),
-                   by_name[name]["dtype"], leaf, dev)
-        for name, leaf in named])
+                   by_name[name]["dtype"], leaf, dev,
+                   None if shard_leaves is None else shard_leaves[i])
+        for i, (name, leaf) in enumerate(named)])
     return _map_leaves(like, lambda _: next(restored)), step
 
 
-def _load_leaf(path: str, logical: str, like: Any,
-               dev: torch.device) -> torch.Tensor:
+def _load_leaf(path: str, logical: str, like: Any, dev: torch.device,
+               sharding: Any = None) -> torch.Tensor:
     t = torch.from_numpy(np.load(path))
     want = like.dtype if isinstance(like, torch.Tensor) \
         else getattr(torch, logical)
-    return t.to(device=dev, dtype=want)
+    if sharding is None:
+        return t.to(device=dev, dtype=want)
+    from torch.distributed.tensor import distribute_tensor
+    mesh, placements = sharding
+    local = t.to(device=mesh.device_type, dtype=want)
+    # every rank holds the whole leaf: no scatter from a source rank
+    return distribute_tensor(local, mesh, placements, src_data_rank=None)
 
 
 class Checkpointer:
@@ -248,9 +295,11 @@ class Checkpointer:
         self._gc()
         return path
 
-    def restore(self, like: Any, step: Optional[int] = None):
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None):
         self.wait()
-        return restore_checkpoint(self.ckpt_dir, like, step, self.device)
+        return restore_checkpoint(self.ckpt_dir, like, step, self.device,
+                                  shardings)
 
     def latest(self) -> Optional[int]:
         return latest_step(self.ckpt_dir)

@@ -135,11 +135,17 @@ class RestartableLoop:
         self.metrics_log: List[Dict] = []
 
     def run(self, state: Any, n_steps: int,
-            fail_at: Optional[Dict[int, int]] = None) -> Any:
+            fail_at: Optional[Dict[int, int]] = None,
+            resume: bool = False) -> Any:
         """Run to n_steps; ``fail_at`` maps step->restart_ordinal for
-        injected preemptions (test hook)."""
+        injected preemptions (test hook).  With ``resume``, start from
+        the latest checkpoint when there is one (a relaunched job
+        continues where its checkpoints end; the reference always starts
+        at step 0)."""
         fail_at = fail_at or {}
         initial, step = state, 0
+        if resume and self.ckpt.latest() is not None:
+            state, step = self.ckpt.restore(state)
         while step < n_steps:
             try:
                 while step < n_steps:

@@ -9,11 +9,11 @@ queries online, take the top-k over the embedding matrix:
   tensors (the counterpart of the reference's ``"pallas"``);
   ``backend="torch"`` is the plain version on any device (the
   counterpart of ``"xla"``);
-* ``DenseIndex.device_chunks`` keeps the reference's
-  ``(row_offset, chunk)`` form with one chunk, and ``topk`` merges the
-  chunks' partial top-k on the host under the total order (score
-  descending, then doc index ascending), so multi-GPU chunks slot in
-  later;
+* ``DenseIndex.device_chunks`` splits the rows of a matrix on the card
+  over the visible CUDA devices (the ``table_rows`` rule, as the
+  reference splits over ``jax.devices()``), one ``(row_offset, chunk)``
+  per device; ``topk`` merges the chunks' partial top-k on the host
+  under the total order (score descending, then doc index ascending);
 * that total order is what makes ``with_cutoff`` sound.
 
 Embeddings come from the cross-encoder backbone in single-text mode
@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -118,14 +119,26 @@ class DenseEncoder:
         return torch.stack([self._query_memo[t] for t in texts])
 
 
+def _devices(matrix: torch.Tensor) -> List[torch.device]:
+    """The devices a corpus matrix is split over: every visible CUDA
+    device for a matrix on the card, else the matrix's own device."""
+    if matrix.device.type != "cuda":
+        return [matrix.device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 class DenseIndex:
-    """Corpus embedding matrix + docno map, resident on one device."""
+    """Corpus embedding matrix + docno map, its rows split over the
+    local devices (``device_chunks``)."""
 
     def __init__(self, encoder: DenseEncoder):
         self.encoder = encoder
         self.docnos: list = []
         self.matrix: Optional[torch.Tensor] = None
         self._digest: Optional[str] = None
+        # (the matrix they split, the chunks): rebuilt when it changes
+        self._chunks: Optional[Tuple[torch.Tensor, list]] = None
+        self.sharding_spec: Optional[tuple] = None
 
     def index(self, corpus_iter) -> "DenseIndex":
         rows = list(corpus_iter)
@@ -145,11 +158,34 @@ class DenseIndex:
         return self._digest
 
     def device_chunks(self) -> List[Tuple[int, torch.Tensor]]:
-        """``(row_offset, chunk)`` pairs covering the corpus: one chunk,
-        the whole matrix on its device."""
+        """Row-shard the corpus matrix across the local devices: the
+        ``table_rows`` logical-axis rule of ``distrib/shardings.py``
+        (rows over the data axis, feature dim replicated) on a 1-D
+        mesh of ``_devices(matrix)``, as one contiguous
+        ``(row_offset, resident chunk)`` per device.  The rule prunes
+        the split when the rows do not divide, and then the matrix is
+        one chunk, as in the reference."""
         if self.matrix is None:
             raise RuntimeError("index() before device_chunks()")
-        return [(0, self.matrix)]
+        if self._chunks is None or self._chunks[0] is not self.matrix:
+            # deferred: distrib pulls in the model zoo, whose
+            # cross-encoder imports back through repro_torch.ir
+            from ..distrib.shardings import ShardingRules
+            devs = _devices(self.matrix)
+            mesh = SimpleNamespace(mesh_dim_names=("data",),
+                                   shape=(len(devs),))
+            self.sharding_spec = ShardingRules().spec_for(
+                tuple(self.matrix.shape), ("table_rows", "table_dim"), mesh)
+            n_rows = int(self.matrix.shape[0])
+            n = len(devs) if (len(self.sharding_spec) and
+                              self.sharding_spec[0] is not None) else 1
+            n = max(1, min(n, n_rows))
+            bounds = [(n_rows * i) // n for i in range(n + 1)]
+            self._chunks = (self.matrix, [
+                (lo, self.matrix[lo:hi].to(devs[i]))
+                for i, (lo, hi) in enumerate(zip(bounds, bounds[1:]))
+                if hi > lo])
+        return self._chunks[1]
 
     def topk(self, q_emb: torch.Tensor, k: int, *,
              backend: str = "cuda") -> Tuple[np.ndarray, np.ndarray]:

@@ -1,3 +1,6 @@
-# Launch layer of the port: the serving launcher (``python -m
-# repro_torch.launch.serve``).  The reference's dry-run, train and mesh
-# launchers come with the model zoo (ROADMAP Queue A item 6).
+# Launch layer of the port (counterpart of repro.launch): the mesh
+# factory, the roofline terms, and the dry-run, train and serve launchers
+# (``python -m repro_torch.launch.{dryrun,train,serve}``).
+from .mesh import make_production_mesh, make_mesh, mesh_info
+
+__all__ = ["make_production_mesh", "make_mesh", "mesh_info"]

@@ -8,14 +8,18 @@ reference's parameter tree and both packages compute from identical
 weights.  Native initialisation draws from a ``torch.Generator``; it
 cannot reproduce the reference's ``jax.random`` bits.
 
-``shard_act`` is the identity: the reference's ``activation_sharding``
-context, the only thing that changes it there, waits for the port's
-distribution layer (meshes), so the port does not export it.
+Inside ``activation_sharding(mesh, spec_fn)``, ``shard_act`` pins a
+``DTensor`` activation to the placements the rules give its logical
+axes (``DTensor.redistribute``); a plain tensor passes through
+unchanged, so a model on one card computes the same in or out of the
+context.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import math
+import threading
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -27,8 +31,9 @@ from ..device import resolve_device
 
 __all__ = ["ParamSpec", "init_params", "abstract_params", "logical_axes_tree",
            "count_params", "params_digest", "params_from_numpy", "rms_norm",
-           "rope", "shard_act", "he_init", "lecun_init", "embed_init",
-           "zeros_init", "ones_init", "load_weights"]
+           "rope", "shard_act", "activation_sharding", "he_init",
+           "lecun_init", "embed_init", "zeros_init", "ones_init",
+           "load_weights"]
 
 
 @dataclass(frozen=True)
@@ -38,10 +43,17 @@ class ParamSpec:
     dtype: torch.dtype = torch.bfloat16
     init: str = "lecun"          # lecun | he | embed | zeros | ones | normal
     init_scale: float = 1.0
+    #: the order in which the dims claim mesh axes (``distrib.shardings``);
+    #: None is first to last
+    resolve_order: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         if len(self.shape) != len(self.logical_axes):
             raise ValueError(f"{self.shape} vs {self.logical_axes}")
+        if self.resolve_order is not None and \
+                sorted(self.resolve_order) != list(range(len(self.shape))):
+            raise ValueError(f"resolve_order {self.resolve_order} is not a "
+                             f"permutation of {len(self.shape)} dims")
 
 
 he_init = partial(ParamSpec, init="he")
@@ -194,8 +206,33 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+_ACT_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh, spec_fn):
+    """Within the context, ``shard_act`` pins DTensor activations on
+    ``mesh`` to ``spec_fn(shape, logical_axes, mesh)`` (a spec, as
+    ``distrib.shardings.ShardingRules.spec_for`` returns).  The context
+    is per thread, as the reference's is."""
+    prev = getattr(_ACT_CTX, "value", None)
+    _ACT_CTX.value = (mesh, spec_fn)
+    try:
+        yield
+    finally:
+        _ACT_CTX.value = prev
+
+
 def shard_act(x: torch.Tensor, logical_axes) -> torch.Tensor:
-    """The identity: no activation-sharding context exists in the port
-    yet (see the module's docstring)."""
-    del logical_axes
-    return x
+    """``x`` redistributed to the placements of its logical axes when it
+    is a ``DTensor`` inside ``activation_sharding``; else ``x`` itself."""
+    ctx = getattr(_ACT_CTX, "value", None)
+    if ctx is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from ..distrib.shardings import placements_for
+    mesh, spec_fn = ctx
+    spec = spec_fn(tuple(x.shape), tuple(logical_axes), mesh)
+    return x.redistribute(mesh, placements_for(spec, mesh))

@@ -30,8 +30,11 @@ What does not carry over:
   training);
 * ``gqa_repeat_kv`` only changes the reference's sharding (repeated KV
   heads compute the same scores); the port always reads grouped heads;
-* ``shard_act`` is the identity (``models.common``), so no call of it
-  is kept.
+* ``shard_act`` is called where the reference calls it, but a plain
+  tensor passes through it (``models.common``): only a ``DTensor``
+  inside ``activation_sharding`` is redistributed.  The decode step
+  writes its cache in place, so the reference's constraints on the
+  updated cache have no counterpart.
 
 The KV cache is head-major, ``[L, B, K, S, hd]`` (the reference's is
 ``[L, B, S, K, hd]``): a layer's slice is the kernel's ``[B, K, S, hd]``
@@ -50,7 +53,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention_op
-from .common import ParamSpec, count_params, load_weights, rms_norm, rope
+from .common import (ParamSpec, count_params, load_weights, rms_norm, rope,
+                     shard_act)
 
 __all__ = ["LMConfig", "param_specs", "load_params", "forward",
            "causal_lm_loss", "prefill", "decode_one", "init_cache_specs",
@@ -217,6 +221,9 @@ def _qkv(x, layer, cfg: LMConfig):
     if cfg.qk_norm:
         q = rms_norm(q, layer["q_norm"])
         k = rms_norm(k, layer["k_norm"])
+    q = shard_act(q, ("batch", None, "heads", None))
+    k = shard_act(k, ("batch", None, "kv_heads", None))
+    v = shard_act(v, ("batch", None, "kv_heads", None))
     return q, k, v
 
 
@@ -304,7 +311,8 @@ def _attention(q, kh, vh, cfg: LMConfig, attention: str):
 def _dense_ffn(x, layer):
     h = torch.einsum("bsd,df->bsf", x, layer["w1"])
     g = torch.einsum("bsd,df->bsf", x, layer["w3"])
-    return torch.einsum("bsf,fd->bsd", F.silu(h) * g, layer["w2"])
+    a = shard_act(F.silu(h) * g, ("batch", None, "d_ff"))
+    return torch.einsum("bsf,fd->bsd", a, layer["w2"])
 
 
 def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:
@@ -336,7 +344,7 @@ def _moe_ffn_grouped(x, layer, cfg: LMConfig):
     Tg = B * S // G
     Cg = moe_capacity(cfg, Tg)
     dev = x.device
-    xt = x.reshape(G, Tg, D)
+    xt = shard_act(x.reshape(G, Tg, D), ("moe_groups", None, None))
 
     logits = torch.einsum("gtd,de->gte", xt.float(), layer["router"])
     probs = torch.softmax(logits, dim=-1)
@@ -364,11 +372,14 @@ def _moe_ffn_grouped(x, layer, cfg: LMConfig):
     slot_token = torch.gather(st, 1, src_pos)                # [G, E*Cg]
     xd = torch.gather(xt, 1, slot_token[..., None].expand(-1, -1, D)) \
         * slot_valid[..., None].to(xt.dtype)
-    xd = xd.reshape(G, E, Cg, D)
+    xd = shard_act(xd.reshape(G, E, Cg, D),
+                   ("moe_groups", "experts", "moe_capacity", None))
 
     h = torch.einsum("gecd,edf->gecf", xd, layer["w1"])
     g2 = torch.einsum("gecd,edf->gecf", xd, layer["w3"])
-    ye = torch.einsum("gecf,efd->gecd", F.silu(h) * g2, layer["w2"])
+    a = shard_act(F.silu(h) * g2,
+                  ("moe_groups", "experts", "moe_capacity", "d_ff"))
+    ye = torch.einsum("gecf,efd->gecd", a, layer["w2"])
     ye = ye.reshape(G, E * Cg, D)
 
     inv_order = torch.argsort(order, dim=1)                  # flat -> sorted
@@ -377,7 +388,8 @@ def _moe_ffn_grouped(x, layer, cfg: LMConfig):
     slot_of = torch.clamp(flat_e * Cg + pos_in_e, max=E * Cg - 1)
     pulled = torch.gather(ye, 1, slot_of[..., None].expand(-1, -1, D)) \
         * (flat_g * keep).to(ye.dtype)[..., None]
-    y = pulled.reshape(G, Tg, k, D).sum(dim=2)
+    y = shard_act(pulled.reshape(G, Tg, k, D).sum(dim=2),
+                  ("moe_groups", None, None))
     return y.reshape(B, S, D), _aux(probs, experts, E, (0, 1))
 
 
@@ -402,7 +414,10 @@ def _moe_ffn(x, layer, cfg: LMConfig):
     flat_g = gates.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
-    counts = torch.bincount(se, minlength=E)
+    # an exact count that runs on every device, the meta device included
+    # (``torch.bincount`` has no meta kernel)
+    counts = torch.zeros(E, dtype=se.dtype, device=dev).scatter_add_(
+        0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=dev) - starts[se]
     keep = pos < C
@@ -411,12 +426,12 @@ def _moe_ffn(x, layer, cfg: LMConfig):
     gathered = xt[st] * keep[:, None].to(xt.dtype)
     xd = torch.zeros(E * C + 1, D, dtype=xt.dtype, device=dev)
     xd[dest] = gathered                 # duplicates only at the drop slot
-    xd = xd[:E * C].reshape(E, C, D)
+    xd = shard_act(xd[:E * C].reshape(E, C, D), ("experts", None, None))
 
     h = torch.einsum("ecd,edf->ecf", xd, layer["w1"])
     g = torch.einsum("ecd,edf->ecf", xd, layer["w3"])
-    ye = torch.einsum("ecf,efd->ecd", F.silu(h) * g,
-                      layer["w2"]).reshape(E * C, D)
+    a = shard_act(F.silu(h) * g, ("experts", None, "d_ff"))
+    ye = torch.einsum("ecf,efd->ecd", a, layer["w2"]).reshape(E * C, D)
 
     safe_dest = torch.clamp(dest, max=E * C - 1)
     contrib = ye[safe_dest] * (sg * keep).to(ye.dtype)[:, None]
@@ -462,10 +477,12 @@ def layer_forward(x, layer, cfg: LMConfig, attention: str = "flash"):
     q = rope(q, pos, cfg.rope_base)
     k = rope(k, pos, cfg.rope_base)
     kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    attn = _attention(q, kh, vh, cfg, attention)
+    attn = shard_act(_attention(q, kh, vh, cfg, attention),
+                     ("batch", None, "heads", None))
     x = x + torch.einsum("bqnh,nhd->bqd", attn, layer["wo"])
+    x = shard_act(x, ("batch", "seq", None))
     ff, aux = _ffn(rms_norm(x, layer["ln2"]), layer, cfg)
-    return x + ff, aux, (kh, vh)
+    return shard_act(x + ff, ("batch", "seq", None)), aux, (kh, vh)
 
 
 def layer_decode(x, layer, k_cache, v_cache, pos: int, cfg: LMConfig,
@@ -494,13 +511,14 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig, *,
             attention: str = "flash") -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B,S] -> (logits [B,S,V], aux_loss scalar)."""
     _check_attention(attention)
-    x = _embed(params, tokens)
+    x = shard_act(_embed(params, tokens), ("batch", "seq", None))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(cfg.n_layers):
         x, a, _ = layer_forward(x, _layer(params, li), cfg, attention)
         aux_total = aux_total + a
     x = rms_norm(x, params["ln_f"])
-    logits = torch.einsum("bsd,dv->bsv", x, _unembed(params, cfg))
+    logits = shard_act(torch.einsum("bsd,dv->bsv", x, _unembed(params, cfg)),
+                       ("batch", None, "vocab"))
     return logits, aux_total / cfg.n_layers
 
 
@@ -531,11 +549,14 @@ def causal_lm_loss(params: Dict, batch: Dict, cfg: LMConfig, *,
 def init_cache_specs(cfg: LMConfig, batch: int, max_len: int) -> Dict:
     """ParamSpec tree for the KV cache, head-major: k and v are
     [L, B, K, max_len, hd] (the reference's are [L, B, max_len, K, hd];
-    ``permute(0, 1, 3, 2, 4)`` maps one onto the other)."""
+    ``permute(0, 1, 3, 2, 4)`` maps one onto the other).  Its dims claim
+    mesh axes in the reference's order (``resolve_order``), so
+    ``kv_seq`` takes the model axis before ``kv_heads`` as it does
+    there."""
     L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     spec = ParamSpec((L, batch, K, max_len, hd),
                      ("layers", "batch", "kv_heads", "kv_seq", "head_dim"),
-                     cfg.dtype, init="zeros")
+                     cfg.dtype, init="zeros", resolve_order=(0, 1, 3, 2, 4))
     return {"k": spec, "v": spec}
 
 
@@ -557,7 +578,7 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: LMConfig, *,
     follow; positions S and on are zeros."""
     _check_attention(attention)
     B, S = tokens.shape
-    x = _embed(params, tokens)
+    x = shard_act(_embed(params, tokens), ("batch", "seq", None))
     cache = init_cache(cfg, B, S if max_len is None else max_len, x.device)
     if cache["k"].shape[3] < S:
         raise ValueError(f"max_len {max_len} is shorter than the prompt's "

@@ -204,6 +204,14 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     (1, 6, 2, 70, 512, 300, None, 48, True, "float32", "simt"),
     (1, 6, 2, 70, 512, 300, 100, 48, True, "bfloat16", "simt"),
     (2, 4, 4, 64, 256, 100, None, 32, False, "float32", "simt"),
+    # qwen3-14b's heads: hd 128, 40 heads over 8 KV heads (a group of 5)
+    (1, 40, 8, 1, 4128, 4097, None, 128, True, "bfloat16", "decode"),
+    (4, 40, 8, 1, 8192, 8000, None, 128, True, "bfloat16", "decode"),
+    (1, 10, 2, 1, 700, 333, None, 128, True, "float32", "decode"),
+    (1, 40, 8, 300, 1024, 700, None, 128, True, "bfloat16", "wgmma"),
+    (1, 40, 8, 256, 256, 256, None, 128, True, "bfloat16", "wgmma"),
+    (1, 10, 2, 70, 512, 300, None, 128, True, "float32", "simt"),
+    (1, 10, 2, 70, 512, 300, 100, 128, False, "float32", "simt"),
 ])
 def test_sk_valid_on_each_path(cuda, B, H, K, Sq, Sk, sk_valid, q_offset, hd,
                                causal, dtype, path):

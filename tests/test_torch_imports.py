@@ -86,9 +86,24 @@ TRAIN_SLICE = ("models", "models.recsys", "models._jax_threefry",
                "train.schedule", "train.optimizer", "train.loop", "data",
                "data.pipeline")
 
+#: the distribution layer, the architecture registry and the launchers
+DIST_SLICE = ("distrib.shardings", "launch.mesh", "launch.roofline",
+              "launch.dryrun", "launch.train", "configs.base",
+              "configs.registry", "configs.granite_moe_3b_a800m",
+              "configs.phi35_moe_42b_a66b", "configs.qwen15_110b",
+              "configs.qwen3_14b")
+
+
+def test_every_reference_module_has_a_counterpart():
+    """The module lists of ``src/repro`` and ``src/repro_torch`` agree:
+    no module of the reference is left without one in the port."""
+    def names(root):
+        return {str(p.relative_to(root)) for p in root.rglob("*.py")}
+    assert names(ROOT / "src" / "repro") - names(PKG) == set()
+
 
 @pytest.mark.parametrize("name", SERVING_SLICE + FLEET_SLICE + LM_SLICE
-                         + TRAIN_SLICE)
+                         + TRAIN_SLICE + DIST_SLICE)
 def test_serving_slice_modules_are_listed_and_stand_alone(name):
     """Each module of the serving and fleet slices exists, and importing
     it alone in a fresh interpreter pulls in neither jax nor repro."""
