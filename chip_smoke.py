@@ -3188,8 +3188,12 @@ def run_train(torch, card: str) -> None:
 # -- the archs phase ----------------------------------------------------------
 
 #: the dry run: 10 archs x 4 shapes on the two production meshes, each
-#: record's per-device argument bytes against the card's memory
+#: record's per-device peak bytes against the card's memory
 DRYRUN_RECORDS, CARD_GB = 80, 80
+#: the dry run's worker processes (the card's host has 8 cores) and its
+#: subprocess limit: 102.6-109.1 s with 8 jobs on the card's host, ~120 s
+#: on another 8-core CPU (~11 min of CPU time, as long in one process)
+DRYRUN_JOBS, DRYRUN_TIMEOUT = 8, 600
 #: granite's step at 32,768 random keys is held to a bound of its own.
 #: Both bf16 paths drift from an fp32 run of the same weights, routing
 #: pinned to the kernel run's, and the drift grows with depth: the
@@ -3236,11 +3240,14 @@ TINY_UPDATED_RTOL = {"qwen1.5-110b": 1e-3}
 
 
 def run_dryrun(build: Path) -> None:
-    """``python -m repro_torch.launch.dryrun --all --multi-pod both`` in
-    a subprocess (the meta device and the host's CPU, no card): exit 0,
-    DRYRUN_RECORDS records, no collective term, and a line per family
-    with its cells, their meta-run seconds and the largest per-device
-    argument GB against the card's 80 GB."""
+    """``python -m repro_torch.launch.dryrun --all --multi-pod both
+    --jobs 8`` in a subprocess (the meta device and the host's CPU, no
+    card): exit 0,
+    DRYRUN_RECORDS records, each with its collective and peak terms
+    derived, and per family a line with its cells, their meta-run
+    seconds, the largest peak bytes per device against the card's
+    CARD_GB, the records whose peak exceeds it, how many records each
+    term dominates and the largest collective term."""
     import os
     build.mkdir(exist_ok=True)
     out = build / "dryrun_torch.jsonl"
@@ -3248,10 +3255,11 @@ def run_dryrun(build: Path) -> None:
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--multi-pod", "both", "--out", str(out), "--quiet"],
+         "--multi-pod", "both", "--out", str(out), "--quiet", "--jobs",
+         str(min(DRYRUN_JOBS, os.cpu_count() or 1))],
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=str(ROOT),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        timeout=900)
+        timeout=DRYRUN_TIMEOUT)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"archs: the dry run exited {proc.returncode}:"
@@ -3263,18 +3271,28 @@ def run_dryrun(build: Path) -> None:
     from repro_torch.configs import get_arch
     fams = collections.defaultdict(list)
     for r in recs:
-        if r["collective_bytes"] is not None:
-            raise AssertionError(f"archs: a collective term was derived: {r}")
+        if any(r[k] is None for k in ("collective_bytes", "collective_s",
+                                      "peak_bytes", "temp_bytes")):
+            raise AssertionError(f"archs: a term was not derived: {r}")
         fams[get_arch(r["arch"]).family].append(r)
     for fam, rs in sorted(fams.items()):
-        big = max(rs, key=lambda r: r["argument_bytes"])
+        big = max(rs, key=lambda r: r["peak_bytes"])
+        over = sorted(f"{r['arch']} {r['shape']} {r['mesh']} "
+                      f"{r['peak_bytes'] / 1e9:.1f}" for r in rs
+                      if r["peak_bytes"] > CARD_GB * 1e9)
+        dom = collections.Counter(r["dominant"] for r in rs)
+        coll = max(rs, key=lambda r: r["collective_s"])
         log(f"archs: dry run {fam}: {len(rs)} records of "
             f"{len({(r['arch'], r['shape']) for r in rs})} cells on "
             f"{sorted({r['mesh'] for r in rs})}, meta runs "
-            f"{sum(r['compile_s'] for r in rs):.1f} s, largest argument "
-            f"bytes per device {big['argument_bytes'] / 1e9:.2f} GB "
-            f"({big['arch']} {big['shape']} on {big['mesh']}) of "
-            f"{CARD_GB} GB")
+            f"{sum(r['compile_s'] for r in rs):.1f} s; largest peak bytes "
+            f"per device {big['peak_bytes'] / 1e9:.2f} GB ({big['arch']} "
+            f"{big['shape']} on {big['mesh']}) of {CARD_GB} GB; "
+            f"{len(over)} records over it (GB): {over}; dominant "
+            f"{dict(sorted(dom.items()))}; largest collective term "
+            f"{coll['collective_s'] * 1e3:.3f} ms ({coll['arch']} "
+            f"{coll['shape']} on {coll['mesh']}: "
+            f"{coll['collective_bytes'] / 1e9:.2f} GB a device)")
     log(f"archs: dry run: {len(recs)} records, exit 0, {wall:.1f} s "
         f"(meta device, no card)")
 
@@ -3382,6 +3400,9 @@ def arch_on_card(torch, card: str, name: str) -> int:
     ref_spread = attention_spread(torch, params, cfg, tokens[:, :512])
     conditioned(params, cfg)
     spread = attention_spread(torch, params, cfg, tokens[:, :512])
+    if name == PEAK_PREFILL_ARCH:
+        check_prefill_peak(torch, card, params, cfg, tokens,
+                           LM_PREFILL + LM_STEPS)
     n_bytes = sum(v.numel() * v.element_size() for _, v in _leaves(params))
     log(f"{tag}: {lm.num_params(cfg):,} params ({n_bytes / 1e9:.2f} GB in "
         f"bf16), L {cfg.n_layers} d {cfg.d_model} H {cfg.n_heads} K "
@@ -3545,6 +3566,218 @@ def run_archs(torch, card: str) -> dict:
     run_dryrun(ROOT / "build")
     log(f"archs: phase wall {time.perf_counter() - t:.1f} s; {card}")
     return launches
+
+
+# -- the peak phase ------------------------------------------------------------
+
+#: the dry run's per-device peak (``launch.roofline.DeviceCounter`` on the
+#: meta device) against ``torch.cuda.max_memory_allocated()`` of the same
+#: call on the card, its arguments resident: within 10 % of the measured
+#: peak or 256 MiB, whichever is larger (the caching allocator rounds each
+#: block to 512 bytes, and cuBLAS's workspace is its own)
+PEAK_RTOL, PEAK_ATOL = 0.10, 256 * 2 ** 20
+#: a cell whose derived peak passes this is named and not run
+PEAK_SKIP = 72e9
+#: the recsys and GCN cells: 4 recsys archs and GCN, 4 shapes each
+PEAK_CELLS = 20
+#: the LM whose plain prefill (the archs phase's) is held to its peak
+PEAK_PREFILL_ARCH = "qwen3-14b"
+#: the train launcher's step under each ``remat``: smollm-360m at batch
+#: 8 x 512 tokens (``TRAIN_FULL``'s), the three modes' losses and
+#: gradients equal to bf16's resolution of each leaf's largest magnitude
+REMATS, REMAT_RTOL = ("none", "full", "dots"), 2 ** -8
+
+
+def tree_of(fn, tree):
+    """``fn`` over the tensor leaves of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_of(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_of(fn, v) for v in tree)
+    return fn(tree) if hasattr(tree, "untyped_storage") else tree
+
+
+def leaf_bytes(tree) -> int:
+    seen = []
+    tree_of(lambda t: seen.append(t.numel() * t.element_size()), tree)
+    return sum(seen)
+
+
+def derived_peak(torch, fn, args) -> int:
+    """The peak bytes of live storage of ``fn(*args)`` run on meta copies
+    of ``args`` (``launch.roofline.OpCounter``), the arguments counted."""
+    from repro_torch.launch.roofline import OpCounter
+    meta = tree_of(lambda t: torch.empty_like(t, device="meta"), args)
+    with OpCounter(meta) as c:
+        fn(*meta)
+    return c.peak
+
+
+def measured_peak(torch, fn, args) -> int:
+    """``torch.cuda.max_memory_allocated()`` over ``fn(*args)``, the peak
+    stats reset just before, less what was allocated beside ``args``."""
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - leaf_bytes(args)
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - other
+    del out
+    return peak
+
+
+def peak_line(card: str, label: str, derived: int, measured: int,
+              extra: str = "") -> None:
+    diff = derived - measured
+    band = max(PEAK_RTOL * measured, PEAK_ATOL)
+    log(f"peak: {label}: derived {derived / 1e9:.3f} GB, measured "
+        f"{measured / 1e9:.3f} GB (max_memory_allocated), derived - "
+        f"measured {diff / 2 ** 20:+.1f} MiB ({100 * diff / measured:+.2f} "
+        f"%; band {band / 2 ** 20:.0f} MiB){extra}; {card}")
+    if abs(diff) > band:
+        raise AssertionError(f"peak: {label}: derived {derived} against "
+                             f"measured {measured}")
+
+
+def materialised(torch, tree, gen):
+    """Meta tensors made on the card: floats drawn by ``gen``, integers
+    zero (valid ids, edges and steps)."""
+    def make(t):
+        if t.dtype.is_floating_point:
+            return torch.randn(t.shape, generator=gen, device="cuda",
+                               dtype=torch.float32).to(t.dtype)
+        return torch.zeros(t.shape, dtype=t.dtype, device="cuda")
+    return tree_of(make, tree)
+
+
+def check_cell_peaks(torch, card: str, build: Path) -> None:
+    """Every recsys and GCN cell (PEAK_CELLS) at its full shape on a
+    one-device mesh:
+    ``dryrun --all --family gnn,recsys --mesh 1x1`` derives each peak (a
+    subprocess, the meta device); the cell then runs on the card on
+    arguments materialised there.  A cell whose derived peak passes
+    PEAK_SKIP is named and not run."""
+    import os
+    from repro_torch.configs import get_arch
+    out = build / "dryrun_1x1.jsonl"
+    out.unlink(missing_ok=True)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--family", "gnn,recsys", "--mesh", "1x1", "--out", str(out),
+         "--quiet"], env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"peak: the 1x1 dry run exited "
+                             f"{proc.returncode}:\n{proc.stdout[-4000:]}")
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    log(f"peak: dryrun --family gnn,recsys --mesh 1x1: {len(recs)} "
+        f"records in {time.perf_counter() - t:.1f} s")
+    if len(recs) != PEAK_CELLS:
+        raise AssertionError(f"peak: {len(recs)} records, not "
+                             f"{PEAK_CELLS}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for r in recs:
+        label = f"{r['arch']} {r['shape']} on 1x1"
+        if r["peak_bytes"] > PEAK_SKIP:
+            log(f"peak: {label}: derived {r['peak_bytes'] / 1e9:.1f} GB, "
+                f"over {PEAK_SKIP / 1e9:.0f} GB: not run")
+            continue
+        cell = get_arch(r["arch"]).cell(r["shape"])
+        args = materialised(torch, cell.abstract_args, gen)
+        if leaf_bytes(args) != r["argument_bytes"]:
+            raise AssertionError(f"peak: {label}: {leaf_bytes(args)} "
+                                 f"argument bytes, the record "
+                                 f"{r['argument_bytes']}")
+        t = time.perf_counter()
+        measured = measured_peak(torch, cell.fn, args)
+        peak_line(card, label, r["peak_bytes"], measured,
+                  f", arguments {r['argument_bytes'] / 1e9:.3f} GB, "
+                  f"{time.perf_counter() - t:.2f} s on the card")
+        del args
+        torch.cuda.empty_cache()
+
+
+def check_remat_peaks(torch, card: str) -> None:
+    """smollm-360m's ``launch/train.py`` step (``TRAIN_FULL``'s batch, the
+    launcher's optimizer and schedule) under each of REMATS: the losses
+    and gradients equal, then each step's derived peak against the
+    measured one, and its ms."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.models.common import _leaves
+    from repro_torch.train import (AdamWConfig, linear_warmup_cosine,
+                                   make_train_step)
+    from repro_torch.train.loop import _value_and_grad
+    base = get_arch("smollm-360m").config
+    params = launch_train.init_weights(base, "cuda")
+    batch = launch_train.synthetic_lm_batch(base, 8, 512, 0, "cuda")
+
+    def loss_of(r):
+        cfg = replace(base, remat=r)
+        return lambda p, b: lm.causal_lm_loss(p, b, cfg, attention="plain")
+
+    ref_loss, ref = _value_and_grad(loss_of("none"), params, batch)
+    for r in REMATS[1:]:
+        loss, grads = _value_and_grad(loss_of(r), params, batch)
+        worst, same = 0.0, bool(torch.equal(loss, ref_loss))
+        for (path, g), (_, want) in zip(_leaves(grads), _leaves(ref)):
+            scale = float(want.abs().max()) or 1.0
+            worst = max(worst, float((g - want).abs().max()) / scale)
+            same = same and bool(torch.equal(g, want))
+        log(f"peak: smollm-360m B 8 x 512 remat {r!r} against 'none': loss "
+            f"{float(loss):.6f} vs {float(ref_loss):.6f}, gradients' "
+            f"largest difference {worst:.3g} of each leaf's largest "
+            f"(tol {REMAT_RTOL:.3g}); bit-identical: {same}; {card}")
+        if float(loss) != float(ref_loss) or worst > REMAT_RTOL:
+            raise AssertionError(f"peak: remat {r} changed the gradients")
+        del grads
+    del ref
+    for r in REMATS:
+        step, init_opt = make_train_step(
+            loss_of(r), AdamWConfig(lr=3e-4),
+            lr_schedule=lambda s: linear_warmup_cosine(s, warmup=20,
+                                                       total=20))
+        opt = init_opt(params)
+        args = (params, opt, batch)
+        derived = derived_peak(torch, step, args)
+        measured = measured_peak(torch, step, args)
+        ms = time_ms(torch, lambda: step(*args), reps=5, warmup=1,
+                     flush_l2=False)
+        peak_line(card, f"smollm-360m launch/train.py step B 8 x 512 remat "
+                  f"{r!r}", derived, measured, f", {ms:.1f} ms a step")
+        del opt, args
+        torch.cuda.empty_cache()
+    del params, batch
+    torch.cuda.empty_cache()
+
+
+def run_peaks(torch, card: str) -> None:
+    """The peak phase: the recsys and GCN cells at 1x1, then the train
+    launcher's step under each ``remat`` (qwen3-14b's prefill is checked
+    in the archs phase, on its weights)."""
+    t = time.perf_counter()
+    check_cell_peaks(torch, card, ROOT / "build")
+    check_remat_peaks(torch, card)
+    log(f"peak: phase wall {time.perf_counter() - t:.1f} s; {card}")
+
+
+def check_prefill_peak(torch, card: str, params: dict, cfg, tokens,
+                       max_len: int) -> None:
+    """The plain prefill of ``tokens`` (the archs phase's reference for
+    ``flash_attention``): the derived peak against the measured one."""
+    from repro_torch.models import lm
+
+    def fn(p, t):
+        return lm.prefill(p, t, cfg, max_len=max_len, attention="plain")
+    B, S = tokens.shape
+    peak_line(card, f"{cfg.name} plain prefill B {B} x {S}",
+              derived_peak(torch, fn, (params, tokens)),
+              measured_peak(torch, fn, (params, tokens)))
+    torch.cuda.empty_cache()
 
 
 def row_by_row_fingerprints(graph):
@@ -3736,7 +3969,13 @@ def main() -> int:
         f"launches {json.dumps(archs)} (each counted from 0 just before a "
         f"prefill or decode step and read just after), no other kernel")
 
-    # -- 15. result lines ---------------------------------------------------
+    # -- 15. the dry run's peaks against the card's allocator -------------
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    driven(torch, lambda: run_peaks(torch, card), "embedding_bag", 0)
+    log(f"peak: in {time.perf_counter() - t:.1f} s, no kernel launched")
+
+    # -- 16. result lines ---------------------------------------------------
     log(json.dumps({"kernels": [{
         "name": "dense_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/dense_topk/csrc/dense_topk.cu",

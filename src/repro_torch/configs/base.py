@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..distrib.shardings import (ShardingRules, batch_axes, mesh_sizes,
-                                 shard_bytes)
+from ..distrib.shardings import (ShardingRules, batch_axes, local_shape,
+                                 mesh_sizes, shard_bytes)
 from ..models import gcn as GCN
 from ..models import lm as LM
 from ..models import recsys as RS
@@ -41,7 +41,7 @@ from ..train.optimizer import AdamWConfig, adamw_state_specs
 
 __all__ = ["ArchDef", "Cell", "Lowered", "LM_SHAPES", "GNN_SHAPES",
            "RECSYS_SHAPES", "lm_arch", "gnn_arch", "recsys_arch",
-           "lm_layer_probe"]
+           "lm_layer_probe", "lm_device_terms"]
 
 
 def _sds(shape, dtype=torch.int32) -> torch.Tensor:
@@ -72,18 +72,35 @@ def _zip_like(args, other) -> List[Tuple[Any, Any]]:
     return [(args, other)]
 
 
+def _zip_map(fn, args, other):
+    """``fn(leaf, node)`` over the leaves of ``args`` and the nodes of
+    ``other`` at their places (as ``_zip_like``), in ``args``' shape."""
+    if isinstance(args, dict):
+        return {k: _zip_map(fn, args[k], other[k]) for k in args}
+    if isinstance(args, (list, tuple)):
+        return type(args)(_zip_map(fn, a, o) for a, o in zip(args, other))
+    return fn(args, other)
+
+
 @dataclass
 class Lowered:
     """What one run of a cell on the meta device gives the dry run:
     global FLOPs (``FlopCounterMode``) and bytes accessed (every aten
     op's operands and results), argument bytes per device from the
-    rules, global output bytes, and the seconds it took."""
+    rules, global output bytes, and the seconds it took; on a
+    ``DeviceMesh``, one device's peak bytes of live storage and its
+    collectives (result bytes by XLA's op name, and ``total``) from the
+    run on DTensor arguments, and the redistributions the models noted
+    (``notes``).  ``None``: not derived (a duck-typed mesh)."""
     flops: float
     bytes_accessed: float
     argument_bytes: int
     output_bytes: int
     seconds: float
     in_specs: Tuple[Any, ...]
+    peak_bytes: Optional[int] = None
+    collectives: Optional[Dict[str, int]] = None
+    notes: str = ""
 
 
 @dataclass
@@ -119,36 +136,100 @@ class Cell:
         return ins, outs
 
     def lower(self, mesh, rules: Optional[ShardingRules] = None, *,
-              counted: Optional[Lowered] = None) -> Lowered:
+              counted: Optional[Lowered] = None,
+              distributed: bool = True) -> Lowered:
         """Resolve the shardings on ``mesh``, enter
-        ``activation_sharding`` and run ``fn`` once on the meta tensors,
-        counting its FLOPs and bytes (``launch.roofline.OpCounter``).
-        The abstract arguments are plain meta tensors, so the counts do
-        not depend on the mesh: ``counted``, this cell's ``Lowered`` on
-        another mesh, lends its counts and only the shardings are
-        resolved anew."""
+        ``activation_sharding`` and run ``fn`` once on the plain meta
+        tensors, counting its FLOPs and bytes (``launch.roofline.
+        OpCounter``); these do not depend on the mesh, so ``counted``,
+        this cell's ``Lowered`` on another mesh, lends them.  On a
+        ``DeviceMesh`` (a process group of its size set up), ``fn`` then
+        runs again on DTensor arguments, meta local shards placed by
+        ``placements_for``, for one device's peak and collectives
+        (``distributed``; ``distributed=False`` leaves them ``None``):
+        these depend on the mesh and are never lent."""
         from ..launch.roofline import OpCounter
         from ..models.common import activation_sharding
         rules = rules or ShardingRules()
         t0 = time.perf_counter()
-        in_specs, _ = self.shardings(mesh, rules)
+        in_specs, out_specs = self.shardings(mesh, rules)
         arg_bytes = sum(
             shard_bytes(a.shape, a.element_size(), s, mesh)
             for a, s in _zip_like(self.abstract_args, in_specs)
             if isinstance(a, torch.Tensor))
         if counted is not None:
-            return replace(counted, argument_bytes=arg_bytes,
-                           in_specs=in_specs,
-                           seconds=time.perf_counter() - t0)
-        counter = OpCounter()
-        with activation_sharding(mesh, rules.spec_for), counter:
-            out = self.fn(*self.abstract_args)
-        out_bytes = sum(t.numel() * t.element_size()
-                        for t, _ in _zip_like(out, out)
-                        if isinstance(t, torch.Tensor))
-        return Lowered(flops=counter.flops, bytes_accessed=counter.bytes,
-                       argument_bytes=arg_bytes, output_bytes=out_bytes,
-                       seconds=time.perf_counter() - t0, in_specs=in_specs)
+            low = replace(counted, argument_bytes=arg_bytes,
+                          in_specs=in_specs, peak_bytes=None,
+                          collectives=None, notes="")
+        else:
+            counter = OpCounter(self.abstract_args)
+            with activation_sharding(mesh, rules.spec_for), counter:
+                out = self.fn(*self.abstract_args)
+            out_bytes = sum(t.numel() * t.element_size()
+                            for t, _ in _zip_like(out, out)
+                            if isinstance(t, torch.Tensor))
+            del out
+            low = Lowered(flops=counter.flops, bytes_accessed=counter.bytes,
+                          argument_bytes=arg_bytes, output_bytes=out_bytes,
+                          seconds=0.0, in_specs=in_specs)
+        from torch.distributed.device_mesh import DeviceMesh
+        if distributed and isinstance(mesh, DeviceMesh):
+            low.peak_bytes, low.collectives, low.notes = \
+                self.distributed(mesh, rules, in_specs, out_specs)
+        low.seconds = time.perf_counter() - t0
+        return low
+
+    def distributed(self, mesh, rules: ShardingRules, in_specs,
+                    out_specs) -> Tuple[int, Dict[str, int], str]:
+        """(peak bytes, collectives, notes) of one device: ``fn`` run
+        once on DTensor arguments (meta local shards) on ``mesh`` under
+        ``activation_sharding``, counted by ``launch.roofline.
+        DeviceCounter``.  The outputs are then placed as
+        ``out_spec_trees`` says, or, where it says nothing, a partial
+        sum is reduced to a replica (XLA's program returns no partial
+        sums); the collectives that takes are counted too."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        from ..distrib.shardings import placements_for
+        from ..launch.roofline import DeviceCounter
+        from ..models.common import activation_sharding, act_notes
+
+        def dtensor(a, spec):
+            if not isinstance(a, torch.Tensor):
+                return a
+            local = torch.empty(local_shape(a.shape, spec, mesh),
+                                dtype=a.dtype, device="meta")
+            return DTensor.from_local(local, mesh,
+                                      placements_for(spec, mesh),
+                                      run_check=False, shape=a.shape,
+                                      stride=a.stride())
+
+        def settle(t, spec):
+            if not isinstance(t, DTensor):
+                return t
+            if spec is not None:
+                want = placements_for(spec, mesh)
+            else:
+                want = tuple(Replicate() if isinstance(p, Partial) else p
+                             for p in t.placements)
+            return t.redistribute(mesh, want)
+
+        args = _zip_map(dtensor, self.abstract_args, in_specs)
+        outs = out_specs if out_specs is not None else \
+            (None,) * len(args)
+        counter = DeviceCounter()
+        counter.hold(args)
+        with activation_sharding(mesh, rules.spec_for), act_notes() as notes, \
+                counter:
+            out = self.fn(*args)
+            if not isinstance(out, tuple):
+                out = (out,)
+            out = tuple(
+                _tree_map(lambda t: settle(t, None), o) if spec is None
+                else _zip_map(settle, o, spec)
+                for o, spec in zip(out, outs + (None,) * len(out)))
+        del out
+        return counter.peak, dict(counter.collectives), \
+            "; ".join(sorted(set(notes)))
 
 
 @dataclass
@@ -315,7 +396,9 @@ def lm_layer_probe(arch: "ArchDef", shape_name: str,
     correct XLA's while-body-once cost accounting (total = scanned
     module + (L - 1) × probe).  The port runs every layer eagerly, so
     its counts need no correction; the probe checks them instead: a
-    cell's FLOPs are its L = 0 cell's plus L × the probe's."""
+    cell's FLOPs are its L = 0 cell's plus L × the probe's.  The train
+    probe runs its layer under the config's ``remat``, as ``forward``
+    runs each layer (the reference's probe remats under ``"full"``)."""
     sh = LM_SHAPES[shape_name]
     S, B, kind = sh["seq_len"], sh["global_batch"], sh["kind"]
     cfg = replace(_lm_cfg(arch, sh, cfg_overrides), scan_layers=False)
@@ -332,7 +415,7 @@ def lm_layer_probe(arch: "ArchDef", shape_name: str,
                 leaves = [x.detach().requires_grad_(True)] + \
                     [layer[n].detach().requires_grad_(True) for n in names]
                 with torch.enable_grad():
-                    out, aux, _ = LM.layer_forward(
+                    out, aux = LM.remat_layer(
                         leaves[0], dict(zip(names, leaves[1:])), cfg,
                         attention="plain")
                     proxy = out.float().sum() + aux
@@ -361,6 +444,41 @@ def lm_layer_probe(arch: "ArchDef", shape_name: str,
                 (x_abs, layer_abs, cache_abs, cache_abs, S - 1),
                 (_batch_sharding_fn(2, B), layer_specs, cache_spec,
                  cache_spec, None))
+
+
+def lm_device_terms(arch: "ArchDef", shape_name: str, mesh,
+                    rules: Optional[ShardingRules] = None,
+                    cfg_overrides: Optional[Dict] = None, **cell_kw
+                    ) -> Tuple[int, Dict[str, int], str]:
+    """(peak bytes, collectives, notes) of one device for an LM cell at
+    its config's depth L, from the cell's DTensor runs
+    (``Cell.distributed``) at 2 and 3 layers:
+
+        X(L) = X(2) + (L - 2) · (X(3) - X(2))
+
+    The layers are identical and run in sequence, so each adds the same
+    collectives, and, under ``remat`` or with a cache, the same bytes to
+    what the step holds at its peak: the reference's layer correction
+    (``apply_layer_correction``) by the same linearity.  From the second
+    layer on: the first can set another peak (a narrow config's step
+    peaks where its one layer's backward meets the loss's).  The tests
+    hold both terms against the full run at 4 layers.  A cell of at most
+    3 layers runs at its depth."""
+    rules = rules or ShardingRules()
+    L = _lm_cfg(arch, LM_SHAPES[shape_name], cfg_overrides).n_layers
+    runs = []
+    for n in ((L,) if L <= 3 else (2, 3)):
+        cell = arch.cell(shape_name, cfg_overrides=dict(cfg_overrides or {},
+                                                        n_layers=n),
+                         **cell_kw)
+        ins, outs = cell.shardings(mesh, rules)
+        runs.append(cell.distributed(mesh, rules, ins, outs))
+    if L <= 3:
+        return runs[0]
+    (p2, c2, notes), (p3, c3, _) = runs
+    coll = {k: c2.get(k, 0) + (L - 2) * (c3.get(k, 0) - c2.get(k, 0))
+            for k in set(c2) | set(c3)}
+    return p2 + (L - 2) * (p3 - p2), coll, notes
 
 
 def _weights(specs: Dict, params, device) -> Dict:

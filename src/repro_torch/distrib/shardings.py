@@ -36,7 +36,7 @@ from ..models.common import ParamSpec, _leaves, _unflatten
 
 __all__ = ["ShardingRules", "DEFAULT_RULES", "spec_for", "tree_shardings",
            "batch_axes", "describe_tree_shardings", "mesh_sizes",
-           "placements_for", "shard_bytes"]
+           "placements_for", "shard_bytes", "local_shape"]
 
 
 #: rule table: logical axis -> tuple of mesh axes (joint sharding).
@@ -141,10 +141,12 @@ def _map_specs(fn, specs):
 def placements_for(spec: Spec, mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: per mesh dim,
     ``Shard(d)`` for the tensor dim ``d`` it splits, else
-    ``Replicate()``.  A dim split over several mesh axes takes them in
-    the mesh's order (DTensor's), so a joint spec must name them so."""
+    ``Replicate()``; a split over an axis of one device is a replica.  A
+    dim split over several mesh axes takes them in the mesh's order
+    (DTensor's), so a joint spec must name them so."""
     from torch.distributed.tensor import Replicate, Shard
     names = list(mesh.mesh_dim_names)
+    sizes = mesh_sizes(mesh)
     out: List[Any] = [Replicate()] * len(names)
     for d, part in enumerate(spec):
         if part is None:
@@ -155,7 +157,20 @@ def placements_for(spec: Spec, mesh) -> tuple:
             raise ValueError(f"spec {spec}: axes {axes} of dim {d} are not "
                              f"in the mesh's order {names}")
         for i in idx:
-            out[i] = Shard(d)
+            if sizes[names[i]] > 1:
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """One device's shard of an array of ``shape`` split by ``spec``
+    (every split divides, as the rules ensure)."""
+    sizes = mesh_sizes(mesh)
+    out = [int(s) for s in shape]
+    for d, part in enumerate(spec):
+        if part is not None:
+            for a in (part if isinstance(part, tuple) else (part,)):
+                out[d] //= sizes[a]
     return tuple(out)
 
 

@@ -10,23 +10,33 @@ the one entry point of the port that touches no card, by design.
 The meshes are ``DeviceMesh`` objects over a ``torch.distributed``
 process group with the ``"fake"`` backend at the mesh's world size (256
 or 512 ranks; this process is rank 0).  ``main()`` sets the group up
-and tears it down, one mesh size at a time; importing this module sets
-up nothing and sets no environment variable.  The fake backend's store
+and tears it down for each cell and mesh in turn, in this process or,
+with ``--jobs N``, in N spawned processes, one cell at a time each;
+importing this module sets up nothing and sets no environment
+variable.  The fake backend's store
 comes from ``torch.testing._internal.distributed.fake_pg``, which is
 PyTorch's internal API.
 
 Per record: FLOPs from ``FlopCounterMode`` (every layer is run, so no
-layer correction), bytes accessed as the sum of every aten op's operand
-and result bytes, both divided by the mesh size (the ideal partition,
-where XLA's figures are those of the partitioned program); argument
-bytes per device exact from the rules; the compute and memory terms with
-the H100 constants of ``launch.roofline``; the collective term ``None``
-(not derived).
+layer correction) and bytes accessed as the sum of every aten op's
+operand and result bytes, both from a run on plain meta tensors, divided
+by the mesh size (the ideal partition, where XLA's figures are those of
+the partitioned program); argument bytes per device exact from the
+rules; one device's peak bytes of live storage and its collectives (the
+result bytes of each ``c10d_functional`` collective, by XLA's op name)
+from a second run on DTensor arguments on the mesh; the compute, memory
+and collective terms with the H100 constants of ``launch.roofline``.  A
+cell whose collectives or peak cannot be derived fails, and the run
+exits 1.  The redistributions the models make beyond the rules (a head
+count the model axis does not divide, the MoE dispatch on replicas) are
+named in the record's ``notes``.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k
     python -m repro_torch.launch.dryrun --all --multi-pod both \\
-        --out results/dryrun_torch.jsonl
+        --out results/dryrun_torch.jsonl --jobs 8
+    python -m repro_torch.launch.dryrun --all --family gnn,recsys \\
+        --mesh 1x1        # one device: peaks to hold against a card
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import math
 import sys
 import time
 import traceback
+from dataclasses import replace
 from typing import Iterator, Optional, Tuple
 
 __all__ = ["fake_process_group", "run_cell", "main"]
@@ -72,9 +83,11 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
     """One cell's ``RooflineReport`` on the production mesh (or the
     elastic ``mesh_shape``).  Needs a process group of the mesh's size
     (``fake_process_group``).  ``counted`` maps (arch, shape) to a
-    ``Lowered`` of an earlier mesh, whose counts the cell reuses (they
-    do not depend on the mesh); the cell's own is added to it."""
+    ``Lowered`` of an earlier mesh, whose FLOPs and bytes the cell
+    reuses (they do not depend on the mesh; its peak and collectives
+    do, and are derived anew); the cell's own is added to it."""
     from ..configs import get_arch
+    from ..configs.base import lm_device_terms
     from ..distrib.shardings import ShardingRules
     from .mesh import make_mesh, make_production_mesh
     from .roofline import analyze_lowered, model_flops_for
@@ -96,21 +109,53 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
     rules = rules or ShardingRules()
 
     key = (arch_name, shape_name)
-    lowered = cell.lower(mesh, rules, counted=(counted or {}).get(key))
+    lm = arch.family == "lm"
+    lowered = cell.lower(mesh, rules, counted=(counted or {}).get(key),
+                         distributed=not lm)
     if counted is not None:
         counted.setdefault(key, lowered)
+    if lm:      # from the runs at 2 and 3 layers (exact by linearity)
+        t0 = time.perf_counter()
+        lowered = replace(lowered)
+        lowered.peak_bytes, lowered.collectives, lowered.notes = \
+            lm_device_terms(arch, shape_name, mesh, rules, **kw)
+        lowered.seconds += time.perf_counter() - t0
     rep = analyze_lowered(
         lowered, arch=arch_name, shape=shape_name, mesh_name=mesh_name,
         n_devices=mesh.size(), kind=cell.kind,
         model_flops_global=model_flops_for(arch, shape_name),
-        compile_s=lowered.seconds, notes=cell.notes)
+        compile_s=lowered.seconds,
+        notes="; ".join(n for n in (cell.notes, lowered.notes) if n))
     if verbose:
-        print(f"--- {arch_name} × {shape_name} on {mesh_name} (meta run "
+        print(f"--- {arch_name} × {shape_name} on {mesh_name} (meta runs "
               f"{lowered.seconds:.1f}s): flops {lowered.flops:.4g}, bytes "
               f"{lowered.bytes_accessed:.4g}, argument bytes per device "
-              f"{lowered.argument_bytes:,}")
+              f"{lowered.argument_bytes:,}, peak bytes per device "
+              f"{lowered.peak_bytes:,}, collective bytes per device "
+              f"{lowered.collectives['total']:,}")
         print(rep.summary())
     return rep
+
+
+def _cell_records(arch_name: str, shape_name: str, pods, mesh_shape,
+                  verbose: bool) -> dict:
+    """{multi_pod: (record dict, None) or (None, the error's repr)} of
+    one cell on each mesh, a fake process group of its size set up for
+    each in turn; the FLOPs and bytes are counted once."""
+    out, counted = {}, {}
+    for mp in pods:
+        with fake_process_group(math.prod(_mesh_shape(mp, mesh_shape))):
+            t0 = time.perf_counter()
+            try:
+                rep = run_cell(arch_name, shape_name, mp, verbose=verbose,
+                               mesh_shape=mesh_shape, counted=counted)
+            except Exception as e:          # recorded, reported at exit
+                traceback.print_exc()
+                out[mp] = (None, repr(e))
+                continue
+            rep.compile_s = time.perf_counter() - t0
+            out[mp] = (rep.to_dict(), None)
+    return out
 
 
 def main(argv=None) -> int:
@@ -123,15 +168,22 @@ def main(argv=None) -> int:
                     default="off")
     ap.add_argument("--mesh", default=None,
                     help="elastic mesh factorization, e.g. 4x8x16 "
-                         "(pods x data x model); overrides --multi-pod")
+                         "(pods x data x model) or 1x1 (data x model, "
+                         "one device); overrides --multi-pod")
+    ap.add_argument("--family", default=None,
+                    help="with --all: only these families, e.g. gnn,recsys")
     ap.add_argument("--out", default=None, help="JSONL output path")
     ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells run in this many processes at once")
     args = ap.parse_args(argv)
 
     from ..configs import all_cells, get_arch
 
     if args.all:
-        cells = all_cells()
+        fams = set(args.family.split(",")) if args.family else None
+        cells = [c for c in all_cells()
+                 if fams is None or get_arch(c[0]).family in fams]
     elif args.arch and args.shape:
         cells = [(args.arch, args.shape)]
     elif args.arch:
@@ -146,31 +198,26 @@ def main(argv=None) -> int:
     if mesh_shape is not None:
         pods = [False]
 
-    out_f = open(args.out, "a") if args.out else None
-    failures, counted = [], {}
-    try:
-        # one process group per mesh size: a group's world size is fixed
-        for mp in pods:
-            with fake_process_group(math.prod(_mesh_shape(mp, mesh_shape))):
-                for arch_name, shape_name in cells:
-                    t0 = time.perf_counter()
-                    try:
-                        rep = run_cell(arch_name, shape_name, mp,
-                                       verbose=not args.quiet,
-                                       mesh_shape=mesh_shape,
-                                       counted=counted)
-                    except Exception as e:      # recorded, reported at exit
-                        traceback.print_exc()
-                        failures.append((arch_name, shape_name, mp,
-                                         repr(e)))
-                        continue
-                    rep.compile_s = time.perf_counter() - t0
-                    if out_f:
-                        out_f.write(json.dumps(rep.to_dict()) + "\n")
-                        out_f.flush()
-    finally:
-        if out_f:
-            out_f.close()
+    work = [(a, s_, pods, mesh_shape, not args.quiet) for a, s_ in cells]
+    if args.jobs > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        with ProcessPoolExecutor(
+                args.jobs, mp_context=multiprocessing.get_context("spawn")
+        ) as pool:
+            done = list(pool.map(_cell_records, *zip(*work)))
+    else:
+        done = [_cell_records(*w) for w in work]
+    failures = []
+    with open(args.out, "a") if args.out else contextlib.nullcontext() \
+            as out_f:
+        for mp in pods:             # the records mesh by mesh, in order
+            for (arch_name, shape_name), runs in zip(cells, done):
+                rec, err = runs[mp]
+                if err is not None:
+                    failures.append((arch_name, shape_name, mp, err))
+                elif out_f:
+                    out_f.write(json.dumps(rec) + "\n")
     if failures:
         print(f"\n{len(failures)} FAILURES:")
         for f in failures:

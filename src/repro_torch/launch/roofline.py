@@ -8,16 +8,30 @@ shape × mesh), in seconds:
     collective = collective_bytes_per_device / NVLINK_BW
 
 The reference reads its FLOPs and bytes from XLA's ``cost_analysis()``
-of the partitioned program and parses the collectives out of its HLO.
-The port runs a cell once on the ``meta`` device instead (``Cell.lower``)
-and counts with ``OpCounter``: FLOPs by
-``torch.utils.flop_counter.FlopCounterMode`` (the matrix products and
-attention; every layer, so no while-body correction is needed), bytes
-as the sum of every aten op's operand and result bytes (the eager
-counterpart of XLA's "bytes accessed").  The ``hlo_*`` field names are
-kept for the records' schema.  Eager PyTorch has no partitioned program
-to parse, so the collective term is ``None`` ("not derived", never 0)
-until it is derived through DTensor's ``CommDebugMode``.
+of the partitioned program, parses the collectives out of its HLO and
+takes its peak from ``memory_analysis()``.  The port runs a cell on the
+``meta`` device instead (``Cell.lower``) and counts with ``OpCounter``:
+
+* FLOPs by ``torch.utils.flop_counter.FlopCounterMode`` (the matrix
+  products and attention; every layer, so no while-body correction is
+  needed) and bytes as the sum of every aten op's operand and result
+  bytes (the eager counterpart of XLA's "bytes accessed"), both over
+  plain meta tensors, i.e. global;
+* the collectives: the ``c10d_functional`` collectives that DTensor
+  issues when the cell runs on DTensor arguments (meta local shards) on
+  the mesh, booked as ``parse_collective_bytes`` books XLA's: the result
+  bytes per device, by op type, under XLA's names.  An all-to-all is
+  booked as one all-to-all, though DTensor runs it on a ``"cpu"`` mesh
+  as an all-gather and a chunk.  A dim split over several mesh axes is
+  gathered by DTensor in one all-gather per axis, and each is booked
+  (XLA issues one all-gather over the flattened group: DTensor's
+  count is larger by the bytes of the partial gathers);
+* the peak: the most bytes of live storage the run holds at once
+  (arguments, intermediates, tensors saved for backward), of the local
+  shards under DTensor, so one device's peak.  XLA's comes from its
+  buffer assignment; this one is what a caching allocator would count.
+
+The ``hlo_*`` field names are kept for the records' schema.
 
 Hardware constants: one NVIDIA H100 80GB HBM3 (SXM) at its 700 W power
 limit, from NVIDIA's data sheet: 989 TFLOP/s dense bf16 on the tensor
@@ -30,6 +44,7 @@ peak and the estimated step time is the largest derived term.
 from __future__ import annotations
 
 import re
+import weakref
 from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, Optional
 
@@ -59,6 +74,7 @@ _COLLECTIVE_RE = re.compile(
 __all__ = ["PEAK_FLOPS", "HBM_BW", "NVLINK_BW", "HOST_PEAK_FLOPS",
            "HOST_MEM_BW", "HOST_DISPATCH_OVERHEAD_S",
            "parse_collective_bytes", "RooflineReport", "OpCounter",
+           "DeviceCounter", "COLLECTIVE_OPS",
            "analyze_lowered", "derive_terms", "apply_layer_correction",
            "estimate_stage_cost", "lm_model_flops", "gnn_model_flops",
            "recsys_model_flops", "model_flops_for"]
@@ -119,23 +135,178 @@ class _ByteCounter(TorchDispatchMode):
         return out
 
 
+#: the collective ops' names (``_c10d_functional``) -> XLA's op names
+COLLECTIVE_OPS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional")
+#: the ops of those namespaces that move no data (their result is the
+#: collective's own on a device, whatever the meta kernel allocates)
+_COLLECTIVE_HELPERS = ("wait_tensor", "_wrap_tensor_autograd")
+#: the modules of DTensor that hold ``shard_dim_alltoall`` by name
+_ALLTOALL_CALLERS = ("torch.distributed.tensor._collective_utils",
+                     "torch.distributed.tensor.placement_types")
+
+
+def _storages(x: Any):
+    if isinstance(x, torch.Tensor):
+        yield x.untyped_storage()
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _storages(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _storages(v)
+
+
+class DeviceCounter(TorchDispatchMode):
+    """One device's side of a run: the bytes of live storage (``live``,
+    its maximum ``peak``) and the collectives (``collectives``: result
+    bytes by XLA's op name, and ``total``).
+
+    A storage is counted once, when an op first returns it (``hold``
+    adds the ones that exist before the run: the arguments), and until
+    it is freed (a weak reference to it).  Under DTensor the mode lets
+    DTensor run first (``NotImplemented`` for a tensor subclass) and
+    sees the local ops it issues: the local shards and the collectives
+    (the fake tensors of its shape inference are not counted).  A
+    collective it does not know raises: nothing is skipped."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self.collectives: Dict[str, int] = {"total": 0}
+        self._refs: Dict[int, Any] = {}
+        self._booked = 0          # > 0: inside an op booked as a whole
+
+    def hold(self, tree: Any) -> None:
+        """Count the storages of the plain tensors (a DTensor's local
+        shard) in ``tree``: nested dicts, lists and tuples."""
+        from torch.distributed.tensor import DTensor
+
+        def local(x):
+            if isinstance(x, DTensor):
+                return x.to_local()
+            if isinstance(x, dict):
+                return {k: local(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return [local(v) for v in x]
+            return x
+        for st in _storages(local(tree)):
+            self._track(st)
+
+    def _track(self, st) -> None:
+        key = id(st)
+        if key in self._refs:
+            return
+        n = st.nbytes()
+
+        def freed(_, key=key, n=n):
+            self.live -= n
+            self._refs.pop(key, None)
+        self._refs[key] = weakref.ref(st, freed)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def book(self, op: str, n_bytes: int) -> None:
+        self.collectives[op] = self.collectives.get(op, 0) + int(n_bytes)
+        self.collectives["total"] += int(n_bytes)
+
+    def _alltoall(self, orig):
+        """DTensor's ``shard_dim_alltoall``, booked as one all-to-all of
+        its result, whatever it runs (on a ``"cpu"`` mesh an all-gather
+        and a chunk): its collectives and buffers are not counted, its
+        result is, as an all-to-all's."""
+        def alltoall(*args, **kwargs):
+            self._booked += 1
+            try:
+                out = orig(*args, **kwargs)
+            finally:
+                self._booked -= 1
+            self.book("all-to-all", _tensor_bytes(out))
+            for st in _storages(out):
+                self._track(st)
+            return out
+        return alltoall
+
+    def __enter__(self):
+        import importlib
+        self._patched = []
+        for name in _ALLTOALL_CALLERS:
+            mod = importlib.import_module(name)
+            orig = getattr(mod, "shard_dim_alltoall", None)
+            if orig is not None:
+                self._patched.append((mod, orig))
+                mod.shard_dim_alltoall = self._alltoall(orig)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for mod, orig in self._patched:
+            mod.shard_dim_alltoall = orig
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if any(t is not torch.Tensor for t in types) or \
+                torch._C._get_dispatch_mode(
+                    torch._C._TorchDispatchModeKey.FAKE) is not None:
+            # DTensor's sharding propagation infers global shapes under a
+            # fake mode: no device's storage, no collective
+            return func(*args, **kwargs)
+        out = func(*args, **kwargs)
+        if self._booked:
+            return out
+        if func.namespace == "_dtensor" and \
+                func._overloadpacket.__name__ == "shard_dim_alltoall":
+            self.book("all-to-all", _tensor_bytes(out))
+        elif func.namespace in _COLLECTIVE_NAMESPACES:
+            name = func._overloadpacket.__name__
+            if name in _COLLECTIVE_HELPERS:
+                return out      # the collective's own result, on a device
+            if name not in COLLECTIVE_OPS:
+                raise NotImplementedError(f"collective {func} has no "
+                                          "booking")
+            self.book(COLLECTIVE_OPS[name], _tensor_bytes(out))
+        for st in _storages(out):
+            self._track(st)
+        return out
+
+
 class OpCounter:
-    """Context manager counting the FLOPs (``FlopCounterMode``) and the
-    bytes accessed of the aten ops run inside it."""
+    """Context manager counting the FLOPs (``FlopCounterMode``), the
+    bytes accessed of the aten ops run inside it and the peak bytes of
+    live storage (``DeviceCounter``; ``hold`` the arguments first)."""
+
+    def __init__(self, args: Any = None):
+        self._args = args
 
     def __enter__(self):
         from torch.utils.flop_counter import FlopCounterMode
         self._flops = FlopCounterMode(display=False)
         self._bytes = _ByteCounter()
+        self._device = DeviceCounter()
+        self._device.hold(self._args)
         self._flops.__enter__()
         self._bytes.__enter__()
+        self._device.__enter__()
         return self
 
     def __exit__(self, *exc):
+        self._device.__exit__(*exc)
         self._bytes.__exit__(*exc)
         self._flops.__exit__(*exc)
         self.bytes = self._bytes.bytes
         self.flops = self._flops.get_total_flops()
+        self.peak = self._device.peak
         return False
 
 
@@ -149,10 +320,10 @@ class RooflineReport:
     # raw per-device quantities
     hlo_flops: float = 0.0
     hlo_bytes: float = 0.0
-    #: None: not derived (the port has no partitioned program to parse)
+    #: None: not derived (``derive_terms`` leaves its term None)
     collective_bytes: Optional[float] = None
     collective_breakdown: Dict[str, int] = field(default_factory=dict)
-    # memory (bytes per device); None where the meta run cannot tell
+    # memory (bytes per device); peak = argument + temp
     argument_bytes: int = 0
     output_bytes: int = 0
     temp_bytes: Optional[int] = None
@@ -191,22 +362,31 @@ def analyze_lowered(lowered, *, arch: str, shape: str, mesh_name: str,
     reference's ``analyze_compiled``).  Per-device FLOPs, bytes and
     output bytes are the global counts over ``n_devices``: the ideal
     partition, where XLA's are those of the partitioned program.  The
-    argument bytes per device are exact, from the sharding rules."""
-    note = "collective term not derived: eager PyTorch has no " \
-        "partitioned program to parse"
+    argument bytes per device are exact, from the sharding rules; the
+    collectives and the peak are one device's, from the DTensor run, and
+    ``temp_bytes`` is the peak less the arguments.  A ``Lowered``
+    without collectives or a peak raises: no term is left out."""
+    if lowered.collectives is None or lowered.peak_bytes is None:
+        raise ValueError(f"{arch} {shape} on {mesh_name}: the run derived "
+                         "no collectives or no peak")
     rep = RooflineReport(
         arch=arch, shape=shape, mesh=mesh_name, n_devices=n_devices,
         kind=kind, hlo_flops=lowered.flops / n_devices,
         hlo_bytes=lowered.bytes_accessed / n_devices,
+        collective_bytes=float(lowered.collectives["total"]),
+        collective_breakdown=dict(lowered.collectives),
         argument_bytes=int(lowered.argument_bytes),
         output_bytes=int(lowered.output_bytes // n_devices),
+        peak_bytes=int(lowered.peak_bytes),
+        temp_bytes=int(lowered.peak_bytes - lowered.argument_bytes),
         model_flops_global=model_flops_global, compile_s=compile_s,
-        notes=f"{notes} [{note}]" if notes else f"[{note}]")
+        notes=notes)
     return derive_terms(rep)
 
 
 def derive_terms(rep: RooflineReport) -> RooflineReport:
-    """(Re-)derive the terms + fractions from the raw quantities.  A
+    """(Re-)derive the three terms + fractions from the raw quantities
+    (the reference's formula, with ``NVLINK_BW`` for its link rate).  A
     collective byte count of ``None`` leaves its term ``None``: it is
     not derived, and takes no part in the dominant term or the step
     estimate."""

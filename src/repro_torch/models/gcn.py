@@ -25,7 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, load_weights
+from .common import (ParamSpec, gather_rows, is_split, load_weights, plain,
+                     replicate_like, scatter_add_rows)
 
 __all__ = ["GCNConfig", "gcn_param_specs", "gcn_full_graph_logits",
            "gcn_full_graph_loss", "gcn_sampled_loss", "gcn_molecule_loss",
@@ -84,8 +85,10 @@ def _sym_norm_agg(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     """
     inv_sqrt = torch.rsqrt(torch.clamp(deg.float(), min=1.0))
     src, dst = src.long(), dst.long()
-    msg = x[src] * (inv_sqrt[src] * inv_sqrt[dst])[:, None].to(x.dtype)
-    agg = torch.zeros_like(x).index_add(0, dst, msg)
+    msg = gather_rows(x, src) * (gather_rows(inv_sqrt, src)
+                                 * gather_rows(inv_sqrt, dst)
+                                 )[:, None].to(x.dtype)
+    agg = scatter_add_rows(x, dst, msg)
     return agg + x * (inv_sqrt * inv_sqrt)[:, None].to(x.dtype)  # self loop
 
 
@@ -103,6 +106,18 @@ def gcn_full_graph_logits(params: Dict, feats: torch.Tensor,
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    if is_split(logits, labels):
+        # DTensor's gather of rows split over two mesh axes leaves a
+        # masked partial sum it cannot reduce: pick the gold logit by a
+        # one-hot sum instead
+        classes = replicate_like(torch.arange(logits.shape[-1],
+                                              device=logits.device), logits)
+        return torch.logsumexp(logits, dim=-1) - torch.where(
+            classes == labels.long()[:, None], logits, 0.0).sum(dim=-1)
+    return plain(_nll_of, logits, labels)
+
+
+def _nll_of(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(1, labels.long()[:, None])[:, 0]
     return logz - gold
@@ -198,7 +213,9 @@ def gcn_molecule_loss(params: Dict, batch: Dict, cfg: GCNConfig):
     """batch: feats [G,N,F], src/dst [G,E], deg [G,N], labels [G]."""
     G, N, F_ = batch["feats"].shape
     # flatten graphs with node offsets so one scatter-add serves all
-    offs = (torch.arange(G, device=batch["src"].device) * N)[:, None]
+    offs = replicate_like(
+        (torch.arange(G, device=batch["src"].device) * N)[:, None],
+        batch["src"])
     src = (batch["src"].long() + offs).reshape(-1)
     dst = (batch["dst"].long() + offs).reshape(-1)
     x = batch["feats"].reshape(G * N, F_)

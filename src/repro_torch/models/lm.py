@@ -24,10 +24,8 @@ fallback: the kernel has no window.  A kernel that fails raises.
 
 What does not carry over:
 
-* ``scan_layers`` and ``remat`` change how XLA compiles the reference,
-  not what a forward pass computes; the port loops over the layers and
-  keeps no activations for a backward pass (``remat`` returns with
-  training);
+* ``scan_layers`` changes how XLA compiles the reference, not what a
+  forward pass computes; the port loops over the layers;
 * ``gqa_repeat_kv`` only changes the reference's sharding (repeated KV
   heads compute the same scores); the port always reads grouped heads;
 * ``shard_act`` is called where the reference calls it, but a plain
@@ -35,6 +33,17 @@ What does not carry over:
   inside ``activation_sharding`` is redistributed.  The decode step
   writes its cache in place, so the reference's constraints on the
   updated cache have no counterpart.
+
+``remat`` is the reference's, applied where autograd records (a
+training step; prefill and decode are unchanged): ``"full"`` runs each
+layer of ``forward`` under ``torch.utils.checkpoint.checkpoint``
+(non-reentrant), which saves the layer's inputs and recomputes the rest
+in the backward pass (``nothing_saveable``); ``"dots"`` saves the matrix
+products without batch dims and recomputes the rest, through PyTorch's
+selective checkpointing (``checkpoint_dots_with_no_batch_dims``);
+``"none"`` saves every activation.  As in the reference, the chunked
+attention's chunk body is rematerialised whatever ``remat`` says, so a
+chunk's ``[C, Sk]`` score block is never saved for the backward pass.
 
 The KV cache is head-major, ``[L, B, K, S, hd]`` (the reference's is
 ``[L, B, S, K, hd]``): a layer's slice is the kernel's ``[B, K, S, hd]``
@@ -46,24 +55,29 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from functools import partial
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention_op
-from .common import (ParamSpec, count_params, load_weights, rms_norm, rope,
-                     shard_act)
+from .common import (ParamSpec, count_params, is_dtensor, is_split,
+                     load_weights, logsumexp, note_act, on_replicas,
+                     replicate_like, rms_norm, rope, shard_act, split_dim,
+                     take_rows, zeros_act)
 
 __all__ = ["LMConfig", "param_specs", "load_params", "forward",
            "causal_lm_loss", "prefill", "decode_one", "init_cache_specs",
            "init_cache", "num_params", "active_params", "moe_capacity",
-           "ATTENTION"]
+           "ATTENTION", "REMAT"]
 
 #: the two ways to compute attention: the kernel (where the reference's
 #: attention computes its function) or the port's plain version
 ATTENTION = ("flash", "plain")
+#: what a training step saves for its backward pass (the reference's)
+REMAT = ("none", "full", "dots")
 NEG = -1e30      # the reference's mask value
 
 
@@ -92,7 +106,7 @@ class LMConfig:
     attn_window: Optional[int] = None        # sliding window (long-context)
     attn_chunk: int = 512                    # q-block for chunked attention
     chunked_attn_threshold: int = 2048       # use chunked attn when S >=
-    remat: str = "full"                      # kept for parity; see above
+    remat: str = "full"                      # none | full | dots
     fuse_qkv: bool = False                   # fused [D, H+2K, hd] projection
     gqa_repeat_kv: bool = False              # kept for parity; see above
     dispatch_groups: int = 0                 # MoE dispatch groups
@@ -203,17 +217,56 @@ def load_params(cfg: LMConfig, seed: int = 0, *,
 # attention
 # ---------------------------------------------------------------------------
 
+class _FlatHeads(torch.autograd.Function):
+    """``x.flatten(dim, dim + 1)`` of a (heads, head_dim) pair whose
+    gradient is split back by ``split_dim``: DTensor may split a
+    gradient's ``n·h`` over a mesh axis that the head count does not
+    divide."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, what: str):
+        ctx.dim, ctx.sizes, ctx.what = dim, tuple(x.shape[dim:dim + 2]), what
+        return x.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_dim(g, ctx.dim, ctx.sizes, ctx.what), None, None
+
+
+def _to_heads(x, w, what: str):
+    """``einsum("bsd,dnh->bsnh", x, w)``.  On DTensors the product runs
+    on the flattened ``n·h`` and is split into heads by ``split_dim``,
+    its gradient too (``_FlatHeads``): DTensor may split the product's
+    ``n·h`` over a mesh axis that the head count does not divide, and
+    such a split is gathered before the view to heads."""
+    if not is_split(x, w):
+        return torch.einsum("bsd,dnh->bsnh", x, w)
+    N, hd = w.shape[1:]
+    y = torch.einsum("bsd,dk->bsk", x, _FlatHeads.apply(w, 1, what))
+    return split_dim(y, -1, (N, hd), what)
+
+
+def _from_heads(attn, wo):
+    """``einsum("bqnh,nhd->bqd", attn, wo)``; on DTensors through the
+    flattened ``n·h`` of both, their gradients split back by
+    ``split_dim``."""
+    if not is_split(attn, wo):
+        return torch.einsum("bqnh,nhd->bqd", attn, wo)
+    return torch.einsum("bqk,kd->bqd", _FlatHeads.apply(attn, 2, "heads"),
+                        _FlatHeads.apply(wo, 0, "heads"))
+
+
 def _qkv(x, layer, cfg: LMConfig):
     """x: [B,S,D] -> q [B,S,H,hd], k/v [B,S,K,hd] (rope NOT yet applied)."""
     if cfg.fuse_qkv:
-        qkv = torch.einsum("bsd,dnh->bsnh", x, layer["wqkv"])
+        qkv = _to_heads(x, layer["wqkv"], "heads")
         q = qkv[..., :cfg.n_heads, :]
         k = qkv[..., cfg.n_heads:cfg.n_heads + cfg.n_kv_heads, :]
         v = qkv[..., cfg.n_heads + cfg.n_kv_heads:, :]
     else:
-        q = torch.einsum("bsd,dnh->bsnh", x, layer["wq"])
-        k = torch.einsum("bsd,dnh->bsnh", x, layer["wk"])
-        v = torch.einsum("bsd,dnh->bsnh", x, layer["wv"])
+        q = _to_heads(x, layer["wq"], "heads")
+        k = _to_heads(x, layer["wk"], "kv_heads")
+        v = _to_heads(x, layer["wv"], "kv_heads")
     if cfg.qkv_bias:
         q = q + layer["bq"]
         k = k + layer["bk"]
@@ -247,10 +300,10 @@ def _plain_attention(q, kh, vh, cfg: LMConfig, q_offset: int = 0):
     G = H // K
     keep = _keep(torch.arange(Sq, device=q.device) + q_offset,
                  torch.arange(Sk, device=q.device), cfg.attn_window)
-    qg = q.reshape(B, Sq, K, G, hd)
+    qg = split_dim(q, 2, (K, G), "heads")
     scores = torch.einsum("bqkgh,bksh->bkgqs", qg, kh).float() \
         * (1.0 / math.sqrt(hd))
-    scores = torch.where(keep, scores, NEG)
+    scores = torch.where(replicate_like(keep, scores), scores, NEG)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bksh->bqkgh", probs, vh)
     return out.reshape(B, Sq, H, hd)
@@ -265,31 +318,75 @@ def _chunked_attention(q, kh, vh, cfg: LMConfig):
     G = H // K
     C = min(cfg.attn_chunk, Sq)
     kpos = torch.arange(Sk, device=q.device)
-    outs = []
-    for c0 in range(0, Sq, C):
-        qc = q[:, c0:c0 + C]
+
+    def chunk(qc, kh, vh, c0: int):
         n = qc.shape[1]
         if n < C:      # the reference pads the last chunk with zero rows
             qc = F.pad(qc, (0, 0, 0, 0, 0, C - n))
         scores = torch.einsum("bqkgh,bksh->bkgqs",
-                              qc.reshape(B, C, K, G, hd), kh).float() \
+                              split_dim(qc, 2, (K, G), "heads"), kh).float() \
             * (1.0 / math.sqrt(hd))
         keep = _keep(c0 + torch.arange(C, device=q.device), kpos,
                      cfg.attn_window)
-        scores = torch.where(keep, scores, NEG)
+        scores = torch.where(replicate_like(keep, scores), scores, NEG)
         m = scores.amax(dim=-1, keepdim=True)
         p = torch.exp(scores - m)
         l = p.sum(dim=-1)
         o = torch.einsum("bkgqs,bksh->bkgqh", p.to(q.dtype), vh)
         o = o / torch.clamp(l, min=1e-30)[..., None].to(q.dtype)
-        outs.append(o.permute(0, 3, 1, 2, 4)[:, :n])    # [B,n,K,G,hd]
+        return o.permute(0, 3, 1, 2, 4)[:, :n]          # [B,n,K,G,hd]
+
+    # the reference remats the chunk body: the [C, Sk] score block is
+    # recomputed in the backward pass, not saved per chunk
+    remat = _records(q, kh, vh)
+    outs = [_checkpointed(chunk, "full", q[:, c0:c0 + C], kh, vh, c0)
+            if remat else chunk(q[:, c0:c0 + C], kh, vh, c0)
+            for c0 in range(0, Sq, C)]
     return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+
+
+def _check_remat(remat: str) -> None:
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
 
 
 def _check_attention(attention: str) -> None:
     if attention not in ATTENTION:
         raise ValueError(f"attention must be one of {ATTENTION}, got "
                          f"{attention!r}")
+
+
+def _records(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: save the matrix products
+    without batch dims, recompute the rest.  ``torch.einsum`` lowers a
+    product without batch dims to a ``bmm`` of batch 1."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if func in (aten.mm.default, aten.addmm.default) or (
+            func is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn: Callable, policy: str, *args):
+    """``fn(*args)`` rematerialised in the backward pass: ``"full"``
+    saves ``args`` alone, ``"dots"`` also the products of
+    ``_dots_policy``.  The LM draws no random numbers, so no RNG state
+    is stashed."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 def _attention(q, kh, vh, cfg: LMConfig, attention: str):
@@ -442,6 +539,13 @@ def _moe_ffn(x, layer, cfg: LMConfig):
 
 def _ffn(x, layer, cfg: LMConfig):
     if cfg.is_moe:
+        if is_dtensor(x):
+            # the dispatch's global sort and scatters have no sharding
+            # strategy: the layer routes on replicas
+            note_act("moe dispatch on replicas: tokens and experts "
+                     "gathered")
+            return on_replicas(lambda x, layer: _moe_ffn(x, layer, cfg),
+                               x, layer)
         return _moe_ffn(x, layer, cfg)
     return _dense_ffn(x, layer), torch.zeros((), dtype=torch.float32,
                                              device=x.device)
@@ -458,8 +562,7 @@ def _layer(params: Dict, li: int) -> Dict:
 def _embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
     """``jnp.take(embed, tokens, mode="clip")``: ids clipped to the
     (padded) table."""
-    table = params["embed"]
-    return table[tokens.long().clamp(0, table.shape[0] - 1)]
+    return take_rows(params["embed"], tokens)
 
 
 def _unembed(params: Dict, cfg: LMConfig) -> torch.Tensor:
@@ -479,10 +582,22 @@ def layer_forward(x, layer, cfg: LMConfig, attention: str = "flash"):
     kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     attn = shard_act(_attention(q, kh, vh, cfg, attention),
                      ("batch", None, "heads", None))
-    x = x + torch.einsum("bqnh,nhd->bqd", attn, layer["wo"])
+    x = x + _from_heads(attn, layer["wo"])
     x = shard_act(x, ("batch", "seq", None))
     ff, aux = _ffn(rms_norm(x, layer["ln2"]), layer, cfg)
     return shard_act(x + ff, ("batch", "seq", None)), aux, (kh, vh)
+
+
+def remat_layer(x, layer, cfg: LMConfig, attention: str = "flash"):
+    """One block as ``forward`` runs it: (x', aux), under ``cfg.remat``
+    where autograd records."""
+    def body(x, layer):
+        out, aux, _ = layer_forward(x, layer, cfg, attention)
+        return out, aux
+
+    if cfg.remat != "none" and _records(x, *layer.values()):
+        return _checkpointed(body, cfg.remat, x, layer)
+    return body(x, layer)
 
 
 def layer_decode(x, layer, k_cache, v_cache, pos: int, cfg: LMConfig,
@@ -502,19 +617,22 @@ def layer_decode(x, layer, k_cache, v_cache, pos: int, cfg: LMConfig,
         attn = attn.transpose(1, 2)                    # [B,1,H,hd]
     else:
         attn = _plain_attention(q, k_cache, v_cache, cfg, q_offset=pos)
-    x = x + torch.einsum("bqnh,nhd->bqd", attn, layer["wo"])[:, 0]
+    x = x + _from_heads(attn, layer["wo"])[:, 0]
     ff, _ = _ffn(rms_norm(x[:, None], layer["ln2"]), layer, cfg)
     return x + ff[:, 0]
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig, *,
             attention: str = "flash") -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B,S] -> (logits [B,S,V], aux_loss scalar)."""
+    """tokens [B,S] -> (logits [B,S,V], aux_loss scalar).  Where
+    autograd records, each layer runs under ``cfg.remat``."""
     _check_attention(attention)
+    _check_remat(cfg.remat)
     x = shard_act(_embed(params, tokens), ("batch", "seq", None))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
     for li in range(cfg.n_layers):
-        x, a, _ = layer_forward(x, _layer(params, li), cfg, attention)
+        x, a = remat_layer(x, _layer(params, li), cfg, attention)
         aux_total = aux_total + a
     x = rms_norm(x, params["ln_f"])
     logits = shard_act(torch.einsum("bsd,dv->bsv", x, _unembed(params, cfg)),
@@ -531,10 +649,11 @@ def causal_lm_loss(params: Dict, batch: Dict, cfg: LMConfig, *,
     logits, aux = forward(params, tokens, cfg, attention=attention)
     logits = logits.float()
     V = cfg.padded_vocab
-    vocab = torch.arange(V, device=logits.device)
+    vocab = shard_act(replicate_like(torch.arange(V, device=logits.device),
+                                     logits), ("vocab",))
     if V != cfg.vocab_size:
         logits = logits + torch.where(vocab >= cfg.vocab_size, NEG, 0.0)
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = logsumexp(logits, dim=-1)
     onehot = vocab[None, None, :] == labels[..., None]
     gold = torch.where(onehot, logits, 0.0).sum(dim=-1)
     mask = (labels >= 0).float()
@@ -579,7 +698,10 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: LMConfig, *,
     _check_attention(attention)
     B, S = tokens.shape
     x = shard_act(_embed(params, tokens), ("batch", "seq", None))
-    cache = init_cache(cfg, B, S if max_len is None else max_len, x.device)
+    cache = {n: zeros_act(s.shape, s.dtype, s.logical_axes, x,
+                          s.resolve_order)
+             for n, s in init_cache_specs(
+                 cfg, B, S if max_len is None else max_len).items()}
     if cache["k"].shape[3] < S:
         raise ValueError(f"max_len {max_len} is shorter than the prompt's "
                          f"{S} tokens")

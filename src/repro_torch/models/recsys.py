@@ -35,7 +35,8 @@ import torch.nn.functional as F
 
 from ..kernels.embedding_bag import embedding_bag_op
 from . import _jax_threefry
-from .common import ParamSpec, load_weights
+from .common import (ParamSpec, diagonal, is_split, load_weights, linear,
+                     logsumexp, matmul, plain, replicate_like, take_rows)
 
 __all__ = ["CRITEO_VOCABS", "RecsysConfig", "recsys_param_specs",
            "embedding_bag", "dlrm_forward", "dcn_forward", "mind_forward",
@@ -96,7 +97,7 @@ def _mlp_specs(dims: Sequence[int], prefix: str, dt) -> Dict[str, ParamSpec]:
 
 def _mlp(x, params, prefix: str, n: int, final_act: bool = False):
     for i in range(n):
-        x = x @ params[f"{prefix}_w{i}"] + params[f"{prefix}_b{i}"]
+        x = linear(x, params[f"{prefix}_w{i}"], params[f"{prefix}_b{i}"])
         if i < n - 1 or final_act:
             x = F.relu(x)
     return x
@@ -164,7 +165,7 @@ def load_params(cfg: RecsysConfig, seed: int = 0, *,
 
 def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, ids, axis=0, mode="clip")``."""
-    return table[ids.long().clamp(0, table.shape[0] - 1)]
+    return take_rows(table, ids)
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
@@ -205,7 +206,13 @@ def dlrm_forward(params: Dict, batch: Dict, cfg: RecsysConfig
     inter = torch.bmm(z, z.transpose(1, 2))
     n = z.shape[1]
     iu, ju = torch.triu_indices(n, n, 1, device=z.device)
-    flat = inter[:, iu, ju]                              # [B, n(n-1)/2]
+    if is_split(inter):
+        # the gather's backward is an index_put with a None index, which
+        # DTensor cannot place: select the pairs by a one-hot product
+        sel = F.one_hot(iu * n + ju, n * n).T.to(inter.dtype)
+        flat = matmul(inter.flatten(1), replicate_like(sel, inter))
+    else:
+        flat = plain(lambda t: t[:, iu, ju], inter)      # [B, n(n-1)/2]
     x = torch.cat([bot, flat], dim=1)
     logit = _mlp(x, params, "top", len(cfg.top_mlp))
     return logit[:, 0]
@@ -221,11 +228,11 @@ def dcn_forward(params: Dict, batch: Dict, cfg: RecsysConfig) -> torch.Tensor:
     x0 = torch.cat([dense, emb.reshape(emb.shape[0], -1)], dim=1)
     x = x0
     for i in range(cfg.n_cross_layers):
-        xw = x @ params[f"cross_w{i}"] + params[f"cross_b{i}"]
+        xw = linear(x, params[f"cross_w{i}"], params[f"cross_b{i}"])
         x = x0 * xw + x
     deep = _mlp(x0, params, "deep", len(cfg.deep_mlp), final_act=True)
     both = torch.cat([x, deep], dim=1)
-    return (both @ params["logit_w"])[:, 0]
+    return matmul(both, params["logit_w"])[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +258,7 @@ def mind_interests(params: Dict, hist_ids: torch.Tensor,
     e = e * hist_mask[..., None].to(e.dtype)
     eS = torch.einsum("bld,de->ble", e, params["S"])       # shared bilinear
     B, L = hist_ids.shape
-    b_logit = routing_init(K, L, e.device).expand(B, K, L)
+    b_logit = replicate_like(routing_init(K, L, e.device), e).expand(B, K, L)
     neg = torch.where(hist_mask > 0, 0.0, -1e30)[:, None, :]
     u = torch.zeros((B, K, e.shape[-1]), dtype=e.dtype, device=e.device)
     for _ in range(cfg.capsule_iters):
@@ -293,7 +300,7 @@ def two_tower_retrieval_scores(params: Dict, batch: Dict,
     """1 query vs n_candidates: batched dot, not a loop."""
     u = two_tower_embed(params, batch["user_ids"], "user", cfg)     # [1,d']
     c = two_tower_embed(params, batch["cand_ids"], "item", cfg)     # [N,d']
-    return u @ c.T
+    return matmul(u, c.T)
 
 
 # ---------------------------------------------------------------------------
@@ -309,8 +316,8 @@ def _bce_with_logits(logit: torch.Tensor, labels: torch.Tensor
 
 
 def _in_batch_softmax(logits: torch.Tensor) -> torch.Tensor:
-    logz = torch.logsumexp(logits, dim=-1)
-    return (logz - torch.diagonal(logits)).mean()
+    logz = logsumexp(logits, dim=-1)
+    return (logz - diagonal(logits)).mean()
 
 
 def recsys_train_loss(params: Dict, batch: Dict,
@@ -327,7 +334,7 @@ def recsys_train_loss(params: Dict, batch: Dict,
         u = two_tower_embed(params, batch["user_ids"], "user", cfg)
         i = two_tower_embed(params, batch["item_ids"], "item", cfg)
         # logQ correction for in-batch sampling (uniform proposal)
-        return _in_batch_softmax((u @ i.T).float() * 10.0)
+        return _in_batch_softmax(matmul(u, i.T).float() * 10.0)
     raise ValueError(cfg.kind)
 
 

@@ -75,8 +75,8 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
     step count."""
     with torch.no_grad():
         gnorm = global_norm(grads)
-        limit = torch.tensor(cfg.grad_clip, dtype=torch.float32,
-                             device=gnorm.device)
+        limit = torch.full((), cfg.grad_clip, dtype=torch.float32,
+                           device=gnorm.device)
         clip = torch.clamp(limit / torch.clamp(gnorm, min=1e-12), max=1.0)
         step = state["step"] + 1
         t = step.float()

@@ -12,7 +12,7 @@ __all__ = ["linear_warmup_cosine", "constant"]
 
 def constant(step, *, value: float = 1.0) -> torch.Tensor:
     device = step.device if isinstance(step, torch.Tensor) else None
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    return torch.full((), value, dtype=torch.float32, device=device)
 
 
 def linear_warmup_cosine(step, *, warmup: int = 100, total: int = 10000,

@@ -24,6 +24,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import LM_SHAPES, get_arch
 from repro_torch.configs.base import lm_layer_probe
 from repro_torch.distrib.shardings import ShardingRules
+from repro_torch.launch.roofline import NVLINK_BW
 from repro_torch.models import lm as tlm
 from repro_torch.models.common import abstract_params
 
@@ -146,8 +147,9 @@ def test_moe_dispatch_runs_on_meta_with_exact_counts():
 
 def test_dryrun_records_and_its_process_group(tmp_path):
     """``python -m repro_torch.launch.dryrun`` writes one record per cell
-    and mesh (collective term ``None``) over a fake process group of its
-    own; the test process never has one."""
+    and mesh, every term derived (the collectives and the peak from the
+    run on DTensor arguments, ``peak = argument + temp``), over a fake
+    process group of its own; the test process never has one."""
     out = tmp_path / "d.jsonl"
     run = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -158,11 +160,35 @@ def test_dryrun_records_and_its_process_group(tmp_path):
     assert len(recs) == 8
     assert {r["mesh"] for r in recs} == {"16x16", "2x16x16"}
     for r in recs:
-        assert r["collective_bytes"] is None and r["collective_s"] is None
-        assert "not derived" in r["notes"]
-        assert r["dominant"] in ("compute", "memory")
+        assert r["collective_bytes"] is not None and r["collective_s"] \
+            == r["collective_bytes"] / NVLINK_BW
+        assert r["collective_breakdown"]["total"] == r["collective_bytes"]
+        assert r["peak_bytes"] == r["argument_bytes"] + r["temp_bytes"]
+        assert r["peak_bytes"] >= r["argument_bytes"] > 0
+        assert "not derived" not in r["notes"]
+        terms = {t: r[f"{t}_s"] for t in ("compute", "memory", "collective")}
+        assert r["dominant"] == max(terms, key=terms.get)
+        assert r["est_step_s"] == max(terms.values())
         assert r["n_devices"] == (256 if r["mesh"] == "16x16" else 512)
     assert not torch.distributed.is_initialized()
+
+
+def test_dryrun_jobs_write_the_records_of_one_process(tmp_path):
+    """``--jobs 2`` runs the cells in two spawned processes and writes
+    the records one process writes, in the same order."""
+    recs = {}
+    for jobs in (1, 2):
+        out = tmp_path / f"d{jobs}.jsonl"
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "dlrm-rm2", "--multi-pod", "both", "--out", str(out),
+             "--quiet", "--jobs", str(jobs)],
+            env=ENV, capture_output=True, text=True, timeout=300)
+        assert run.returncode == 0, run.stderr[-4000:]
+        recs[jobs] = [{k: v for k, v in json.loads(line).items()
+                       if k != "compile_s"}
+                      for line in out.read_text().splitlines()]
+    assert len(recs[1]) == 8 and recs[1] == recs[2]
 
 
 def test_dryrun_sets_up_its_group_in_main_only():
