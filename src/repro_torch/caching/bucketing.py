@@ -19,6 +19,8 @@ from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 
+from ..core import trace
+
 __all__ = ["bucket_size", "pad_batch", "BucketedRunner"]
 
 
@@ -47,6 +49,11 @@ class BucketedRunner:
     ``fn`` sees only O(log n) distinct leading dimensions, so a jitted
     scorer compiles a handful of times per experiment instead of once
     per miss batch.  Tracks the shapes issued for test assertions.
+
+    While the span recorder is on (``core/trace.py``) it counts the
+    first array's non-zero entries (an encoder's non-padding tokens)
+    as ``encoder.tokens_useful`` and the padded bucket's entries as
+    ``encoder.tokens_computed``.
     """
 
     def __init__(self, fn: Callable[..., np.ndarray], *, floor: int = 8,
@@ -67,6 +74,11 @@ class BucketedRunner:
             b = bucket_size(m, floor=self.floor, ceiling=self.max_bucket)
             padded = [pad_batch(a, b) for a in chunk]
             self.shapes_issued[b] = self.shapes_issued.get(b, 0) + 1
+            rec = trace.active()
+            if rec is not None:
+                rec.count("encoder.tokens_useful",
+                          int(np.count_nonzero(chunk[0])))
+                rec.count("encoder.tokens_computed", padded[0].size)
             out = np.asarray(self.fn(*padded))
             outs.append(out[:m])
         return np.concatenate(outs, axis=0)

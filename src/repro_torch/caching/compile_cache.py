@@ -49,6 +49,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..core import trace
+
 __all__ = ["CompileCache", "CompileCacheStats", "signature_of_args",
            "default_compile_cache"]
 
@@ -212,8 +214,9 @@ class CompileCache:
             if entry is not None:
                 return entry
             t0 = time.perf_counter()
-            entry = _Graph(fn, args, kwargs, device) \
-                if device.type == "cuda" else _Eager(fn)
+            with trace.span("compile_cache.capture", entry=name):
+                entry = _Graph(fn, args, kwargs, device) \
+                    if device.type == "cuda" else _Eager(fn)
             with self._lock:
                 self._mem[key] = entry
                 self.stats.compile_misses += 1

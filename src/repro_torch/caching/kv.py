@@ -21,6 +21,7 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
+from ..core import trace
 from ..core.frame import ColFrame
 from .backends import CacheBackend, open_backend, resolve_backend_name
 from .base import (CacheTransformer, n_frame_queries, pickle_key,
@@ -129,35 +130,39 @@ class KeyValueCache(CacheTransformer):
     def transform(self, inp: ColFrame) -> ColFrame:
         if len(inp) == 0:
             return inp
-        keys = self._keys_of(inp)
-        if len(inp) == 1 and self.verify_fraction == 0:
-            hit = self._transform_single(inp, keys[0])
-            if hit is not None:
-                return hit
-            found: List[Optional[bytes]] = [None]   # already probed —
-            # the compute-once recheck under the lock re-queries anyway
-            prefetched = 0
-        else:
-            found, prefetched = self._lookup_many(keys)
-        miss_idx = [i for i, v in enumerate(found) if v is None]
+        with trace.span("cache.lookup", cache=type(self).__name__,
+                        rows=len(inp)):
+            keys = self._keys_of(inp)
+            if len(inp) == 1 and self.verify_fraction == 0:
+                hit = self._transform_single(inp, keys[0])
+                if hit is not None:
+                    return hit
+                # already probed — the compute-once recheck under the
+                # lock re-queries anyway
+                found: List[Optional[bytes]] = [None]
+                prefetched = 0
+            else:
+                found, prefetched = self._lookup_many(keys)
+            miss_idx = [i for i, v in enumerate(found) if v is None]
 
-        if not miss_idx and self.codec == KV_CODEC \
-                and self.verify_fraction == 0:
-            cols = decode_kv_batch(found, len(self.value_cols))
-            if cols is not None:
-                # warm all-float batch: one frombuffer/reshape instead
-                # of N pickle.loads + per-row column assembly
-                self.stats.add(hits=len(keys), prefetched=prefetched)
-                self._note_call(len(keys), 0)
-                self._note_access(keys)
-                out_frame = inp
-                for ci, c in enumerate(self.value_cols):
-                    out_frame = out_frame.assign(
-                        **{c: np.ascontiguousarray(cols[:, ci])})
-                return out_frame
+            if not miss_idx and self.codec == KV_CODEC \
+                    and self.verify_fraction == 0:
+                cols = decode_kv_batch(found, len(self.value_cols))
+                if cols is not None:
+                    # warm all-float batch: one frombuffer/reshape instead
+                    # of N pickle.loads + per-row column assembly
+                    self.stats.add(hits=len(keys), prefetched=prefetched)
+                    self._note_call(len(keys), 0)
+                    self._note_access(keys)
+                    out_frame = inp
+                    for ci, c in enumerate(self.value_cols):
+                        out_frame = out_frame.assign(
+                            **{c: np.ascontiguousarray(cols[:, ci])})
+                    return out_frame
 
-        values: List[Optional[Tuple]] = \
-            [self._decode_value(v) if v is not None else None for v in found]
+            values: List[Optional[Tuple]] = [
+                self._decode_value(v) if v is not None else None
+                for v in found]
 
         if miss_idx:
             miss_idx = self._fill_misses(inp, keys, values, miss_idx)
@@ -197,7 +202,8 @@ class KeyValueCache(CacheTransformer):
         misses serialize across workers sharing one store (hits stay
         concurrent).  Run cold warm-ups uncached, or accept first-run
         serialization for never-recompute semantics."""
-        with self._backend.lock():
+        with trace.span("cache.fill", cache=type(self).__name__,
+                        rows=len(miss_idx)), self._backend.lock():
             recheck = self._recheck_many([keys[i] for i in miss_idx])
             still = []
             for i, blob in zip(miss_idx, recheck):
@@ -215,7 +221,8 @@ class KeyValueCache(CacheTransformer):
             rep_rows = [idxs[0] for idxs in uniq.values()]
             miss_frame = inp.take(np.asarray(rep_rows, dtype=np.int64))
             t0 = time.perf_counter()
-            out = t(miss_frame)
+            with trace.span("cache.compute", rows=len(rep_rows)):
+                out = t(miss_frame)
             self.stats.add(compute_s=time.perf_counter() - t0,
                            compute_queries=n_frame_queries(miss_frame))
             if len(out) != len(rep_rows):
@@ -230,14 +237,15 @@ class KeyValueCache(CacheTransformer):
                 new_items.append((k, self._encode_value(val)))
                 for i in idxs:
                     values[i] = val
-            if not self.readonly:        # stale-readonly: never insert
-                # under write-behind this *enqueues* inside the locked
-                # section (the racing recheck sees the overlay); the
-                # barrier makes it durable before the lock releases so
-                # other processes' rechecks see it too
-                self._store_many(new_items)
-                self.stats.add(inserts=len(new_items))
-            self._write_barrier()
+            with trace.span("cache.write", rows=len(new_items)):
+                if not self.readonly:    # stale-readonly: never insert
+                    # under write-behind this *enqueues* inside the
+                    # locked section (the racing recheck sees the
+                    # overlay); the barrier makes it durable before the
+                    # lock releases so other processes' rechecks see it
+                    self._store_many(new_items)
+                    self.stats.add(inserts=len(new_items))
+                self._write_barrier()
             return still
 
     # -- determinism verification (beyond paper §6) ---------------------------

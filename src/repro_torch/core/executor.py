@@ -41,6 +41,7 @@ so a stage runs the same on a pool thread as on the main thread.
 from __future__ import annotations
 
 import heapq
+import itertools
 import queue as queue_mod
 import random
 import threading
@@ -51,9 +52,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import trace
 from .frame import ColFrame
 from .ir import IRNode, PlanGraph
 from .precompute import _run_stage
+from .trace import Recorder, add_node, node_span
 
 __all__ = ["run_sequential", "run_concurrent", "run_warm",
            "resolve_n_shards", "Reservoir", "NodeOnlineStats",
@@ -149,29 +152,6 @@ def _exec_node(node: IRNode, ins: List[ColFrame],
     return node.stage.combine(ins[0], ins[1])              # combine
 
 
-class _Recorder:
-    """Thread-safe (label, shard, t0, t1) execution records."""
-
-    def __init__(self) -> None:
-        self.records: List[Tuple[str, int, float, float]] = []
-        self._lock = threading.Lock()
-
-    def add(self, label: str, shard: int, t0: float, t1: float) -> None:
-        with self._lock:
-            self.records.append((label, shard, t0, t1))
-
-
-class _NullRecorder(_Recorder):
-    """Drops records — the streaming executor keeps bounded per-node
-    reservoirs instead of an ever-growing record list."""
-
-    def add(self, label: str, shard: int, t0: float, t1: float) -> None:
-        pass
-
-
-_NULL_RECORDER = _NullRecorder()
-
-
 def _effective_inputs(node: IRNode) -> List[IRNode]:
     """The inputs a scheduler must wait for.  Cache-prune: a probing
     node waits on the deferred chain's *input*; the chain itself runs
@@ -197,25 +177,22 @@ def _wave_edges(graph: PlanGraph
 
 def _exec_with_probe(node: IRNode, probe_frame: ColFrame,
                      batch_size: Optional[int], shard: int,
-                     rec: _Recorder) -> ColFrame:
+                     rec: Optional[Recorder], req: Any = None) -> ColFrame:
     """Lookup-first evaluation of a cache-prune annotated node: serve
     from the warm store keyed off ``probe_frame``; on any miss, execute
     the deferred chain to build the node's real input, then run the
     memoized stage normally."""
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     out = node.cache.serve_from_store(probe_frame)
     if out is not None:
-        rec.add(node.label, shard, t0, time.perf_counter())
+        add_node(rec, node.label, shard, t0, time.perf_counter_ns(), req)
         return out
     v = probe_frame
     for ch in node.inline_chain:
-        t1 = time.perf_counter()
-        v = _exec_node(ch, [v], batch_size)
-        rec.add(ch.label, shard, t1, time.perf_counter())
-    t1 = time.perf_counter()
-    out = _exec_node(node, [v], batch_size)
-    rec.add(node.label, shard, t1, time.perf_counter())
-    return out
+        with node_span(rec, ch.label, shard, req):
+            v = _exec_node(ch, [v], batch_size)
+    with node_span(rec, node.label, shard, req):
+        return _exec_node(node, [v], batch_size)
 
 
 class _Prefetcher:
@@ -283,10 +260,10 @@ class _Prefetcher:
 
 def run_sequential(graph: PlanGraph, frame: ColFrame,
                    batch_size: Optional[int],
-                   rec: Optional[_Recorder] = None) -> List[ColFrame]:
+                   rec: Optional[Recorder] = None) -> List[ColFrame]:
     """Evaluate all terminals over ``frame``; returns per-pipeline
-    results.  Execution records accumulate into ``rec``."""
-    rec = rec if rec is not None else _Recorder()
+    results.  ``plan.node`` spans accumulate into ``rec``."""
+    rec = rec if rec is not None else Recorder()
     results: Dict[int, ColFrame] = {graph.source.id: frame}
     pf = _Prefetcher.for_graph(graph)
 
@@ -299,9 +276,8 @@ def run_sequential(graph: PlanGraph, frame: ColFrame,
                                    batch_size, 0, rec)
         else:
             ins = [evaluate(i) for i in node.inputs]
-            t0 = time.perf_counter()
-            out = _exec_node(node, ins, batch_size)
-            rec.add(node.label, 0, t0, time.perf_counter())
+            with node_span(rec, node.label, 0):
+                out = _exec_node(node, ins, batch_size)
         results[node.id] = out
         if pf is not None:
             pf.node_ready(node.id, out)
@@ -321,7 +297,7 @@ def run_sequential(graph: PlanGraph, frame: ColFrame,
 def run_warm(graph: PlanGraph, frame: ColFrame,
              batch_size: Optional[int] = None, *,
              chunk_rows: Optional[int] = None,
-             rec: Optional[_Recorder] = None) -> int:
+             rec: Optional[Recorder] = None) -> int:
     """Offline cache warming: evaluate every terminal over ``frame``
     purely for the side effect of populating memo caches; outputs are
     discarded chunk by chunk.
@@ -334,7 +310,7 @@ def run_warm(graph: PlanGraph, frame: ColFrame,
     are non-contiguous, exactly mirroring ``resolve_n_shards``.
     Returns the number of chunks executed.
     """
-    rec = rec if rec is not None else _Recorder()
+    rec = rec if rec is not None else Recorder()
     n = len(frame)
     if n == 0:
         return 0
@@ -355,7 +331,7 @@ def run_warm(graph: PlanGraph, frame: ColFrame,
 
 def run_concurrent(graph: PlanGraph, frame: ColFrame,
                    batch_size: Optional[int], n_shards: int, workers: int,
-                   rec: _Recorder) -> Tuple[List[ColFrame],
+                   rec: Recorder) -> Tuple[List[ColFrame],
                                             List[Tuple[int, int]]]:
     """Sharded wavefront execution on a thread pool.
 
@@ -415,9 +391,8 @@ def run_concurrent(graph: PlanGraph, frame: ColFrame,
                                    batch_size, s, rec)
         else:
             ins = [results[(i.id, s)] for i in node.inputs]
-            t0 = time.perf_counter()
-            out = _exec_node(node, ins, batch_size)
-            rec.add(node.label, s, t0, time.perf_counter())
+            with node_span(rec, node.label, s):
+                out = _exec_node(node, ins, batch_size)
         results[(node.id, s)] = out
 
     try:
@@ -624,9 +599,12 @@ def _freeze_value(v: Any) -> Any:
     return v
 
 
+_REQUEST_IDS = itertools.count(1)
+
+
 class _StreamRequest:
     __slots__ = ("rows", "qid_rows", "qid_orig", "qid_order", "future",
-                 "t0")
+                 "t0_ns", "rid")
 
     def __init__(self, rows: List[Dict[str, Any]]):
         self.rows = rows
@@ -648,16 +626,18 @@ class _StreamRequest:
                 self.qid_rows[q] = self.qid_rows[q] + (frozen,)
                 self.qid_orig[q].append(r)
         self.future: Future = Future()
-        self.t0 = time.perf_counter()
+        self.rid = next(_REQUEST_IDS)
+        self.t0_ns = time.perf_counter_ns()
 
 
 class _BatchMeta:
-    __slots__ = ("requests", "cause", "n_rows_in", "failed",
+    __slots__ = ("requests", "rids", "cause", "n_rows_in", "failed",
                  "hits", "misses")
 
     def __init__(self, requests: List[_StreamRequest], cause: str,
                  n_rows_in: int):
         self.requests = requests
+        self.rids = tuple(r.rid for r in requests)
         self.cause = cause
         self.n_rows_in = n_rows_in
         self.failed = False
@@ -890,9 +870,13 @@ class StreamingExecutor:
             ready = self._complete_locked(self.graph.source.id, s)
         self.stats.record_batch(n_requests=len(reqs), rows_in=n_rows_in,
                                 rows_executed=len(frame), cause=cause)
+        launched = trace.now_ns()
+        if launched:
+            for req in reqs:
+                trace.add("serve.queue", req.t0_ns, launched, req=req.rid)
         try:
             for node in ready:
-                self._pool.submit(self._run_task, node, s)
+                self._pool.submit(self._run_task, node, s, launched)
         except BaseException as e:
             # pool refused (shutdown race): unwind _inflight and fail
             # this batch's futures so close() never stalls
@@ -910,11 +894,16 @@ class StreamingExecutor:
                 ready.append(child)
         return ready
 
-    def _run_task(self, node: IRNode, s: int) -> None:
+    def _run_task(self, node: IRNode, s: int, queued_ns: int = 0) -> None:
+        """One node of batch ``s``; ``queued_ns`` (recording on) is when
+        the task was handed to the pool."""
         with self._lock:
             meta = self._meta.get(s)
         if meta is None or meta.failed:
             return
+        if queued_ns:
+            trace.add("serve.pool_wait", queued_ns, time.perf_counter_ns(),
+                      req=meta.rids, node=node.label)
         cache = node.cache
         # hand-wrapped caches arrive as the *stage* (e.g. the legacy
         # scorer service pipeline `ScorerCache(scorer)`), planner memos
@@ -928,10 +917,11 @@ class StreamingExecutor:
             if node.probe_input is not None and cache is not None:
                 out = _exec_with_probe(
                     node, self._results[(node.probe_input.id, s)],
-                    self.batch_size, s, _NULL_RECORDER)
+                    self.batch_size, s, None, meta.rids)
             else:
                 ins = [self._results[(i.id, s)] for i in node.inputs]
-                out = _exec_node(node, ins, self.batch_size)
+                with node_span(None, node.label, s, meta.rids):
+                    out = _exec_node(node, ins, self.batch_size)
             dt_ms = (time.perf_counter() - t0) * 1000.0
         except BaseException as e:
             self._fail_batch(s, e)
@@ -956,8 +946,9 @@ class StreamingExecutor:
             return
         with self._lock:
             ready = self._complete_locked(node.id, s)
+        queued = trace.now_ns()
         for child in ready:
-            self._pool.submit(self._run_task, child, s)
+            self._pool.submit(self._run_task, child, s, queued)
 
     # -- completion ----------------------------------------------------------
     def _cleanup_locked(self, s: int) -> Optional[_BatchMeta]:
@@ -976,20 +967,26 @@ class StreamingExecutor:
             meta = self._cleanup_locked(s)
         if meta is None:
             return
-        groups = {str(k[0]): idx for k, idx in
-                  out.group_indices(["qid"]).items()} if len(out) else {}
-        now = time.perf_counter()
+        now_ns = time.perf_counter_ns()
         latencies = []
-        for req in meta.requests:
-            parts = [out.take(groups[q]) for q in req.qid_order
-                     if q in groups]
-            res = parts[0] if len(parts) == 1 else (
-                ColFrame.concat(parts) if parts else ColFrame())
-            latencies.append((now - req.t0) * 1000.0)
-            try:                         # a caller may have cancelled;
-                req.future.set_result(res)   # never stall its batchmates
-            except Exception:
-                pass
+        done: List[int] = []
+        with trace.span("serve.finalize", req=meta.rids):
+            groups = {str(k[0]): idx for k, idx in
+                      out.group_indices(["qid"]).items()} if len(out) else {}
+            for req in meta.requests:
+                parts = [out.take(groups[q]) for q in req.qid_order
+                         if q in groups]
+                res = parts[0] if len(parts) == 1 else (
+                    ColFrame.concat(parts) if parts else ColFrame())
+                latencies.append((now_ns - req.t0_ns) * 1e-6)
+                try:                     # a caller may have cancelled;
+                    req.future.set_result(res)  # never stall batchmates
+                except Exception:
+                    pass
+                done.append(trace.now_ns())
+        for req, t1 in zip(meta.requests, done):
+            if t1:
+                trace.add("serve.request", req.t0_ns, t1, req=req.rid)
         if self._on_batch is not None:
             try:
                 self._on_batch(n_requests=len(meta.requests),

@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import trace
 from .frame import ColFrame
 from .measures import evaluate, parse_measure
 from .pipeline import Transformer
@@ -244,12 +245,13 @@ def Experiment(
 
     per_query: Dict[str, Dict[str, Dict[str, float]]] = {}
     means: Dict[str, Dict[str, float]] = {}
-    for n, res in zip(names, outs):
-        pq = evaluate(res, qrels, measures)
-        per_query[n] = pq
-        means[n] = {m.name: (float(np.mean(list(pq[m.name].values())))
-                             if pq[m.name] else 0.0)
-                    for m in measures}
+    with trace.span("experiment.evaluate", systems=len(names)):
+        for n, res in zip(names, outs):
+            pq = evaluate(res, qrels, measures)
+            per_query[n] = pq
+            means[n] = {m.name: (float(np.mean(list(pq[m.name].values())))
+                                 if pq[m.name] else 0.0)
+                        for m in measures}
 
     result = ExperimentResult(
         names=names, measures=[m.name for m in measures], means=means,

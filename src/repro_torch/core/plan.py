@@ -60,8 +60,9 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 from .cost import (CostContext, CostModel, annotate_node_actuals,
                    fold_costs, plan_fingerprints, should_prefetch,
                    _round_cost)
-from .executor import (_Recorder, resolve_n_shards, run_concurrent,
-                       run_sequential, run_warm)
+from . import trace
+from .executor import (resolve_n_shards, run_concurrent, run_sequential,
+                       run_warm)
 from .frame import ColFrame
 from .ir import IRNode, PlanGraph, lower, plan_size, render_explain
 from .pipeline import Transformer, pipeline_hash
@@ -96,6 +97,9 @@ class PlanStats(PrecomputeStats):
     node_compute_queries: Dict[str, int] = field(default_factory=dict)
     wall_time_s: float = 0.0
     n_queries: int = 0                   # rows in the query frame
+    #: seconds the plan's construction took (lowering, passes, opening
+    #: caches): the ``plan.compile`` span
+    compile_time_s: float = 0.0
     # -- online serving (filled by PipelineService, see serve/service.py) ----
     #: per-node online latency (p50/p99 ms), executions and rows, plus
     #: service-level queue depth / flush-trigger / batch-occupancy stats
@@ -208,6 +212,7 @@ class ExecutionPlan:
                  cache_budget: Any = None,
                  optimize: Union[str, Sequence[str], None] = "all",
                  prefetch: bool = True):
+        t0 = time.perf_counter_ns()
         self.pipelines: List[Transformer] = list(pipelines)
         self.cache_dir = cache_dir
         self.cache_backend = cache_backend
@@ -268,6 +273,9 @@ class ExecutionPlan:
         if cache_dir is not None:
             self._write_plan_manifest()
         self.stats: Optional[PlanStats] = None   # last run
+        t1 = time.perf_counter_ns()
+        self.compile_time_s = (t1 - t0) * 1e-9
+        trace.add("plan.compile", t0, t1)
 
     # -- compatibility views ------------------------------------------------
     @property
@@ -672,7 +680,7 @@ class ExecutionPlan:
         compute_base = self._compute_counters()
         stats = self._new_stats()
         stats.n_queries = len(frame)
-        rec = _Recorder()
+        rec = trace.Recorder()
         if shards <= 1 and workers <= 1:
             outs = run_sequential(self.graph, frame, batch_size, rec)
         else:
@@ -710,7 +718,7 @@ class ExecutionPlan:
         compute_base = self._compute_counters()
         stats = self._new_stats()
         stats.n_queries = len(frame)
-        rec = _Recorder()
+        rec = trace.Recorder()
         run_warm(self.graph, frame, batch_size, chunk_rows=chunk_rows,
                  rec=rec)
         self._fill_exec_stats(stats, rec)
@@ -726,6 +734,7 @@ class ExecutionPlan:
             nodes_total=self.nodes_total_naive,
             nodes_planned=self.n_nodes(),
             optimizer_passes=[p.name for p in self.pass_stats],
+            compile_time_s=self.compile_time_s,
             nodes_eliminated=agg["nodes_eliminated"],
             cutoffs_pushed=agg["cutoffs_pushed"],
             pass_times_s=self._pass_times())
@@ -737,7 +746,8 @@ class ExecutionPlan:
             times[p.name] = round(times.get(p.name, 0.0) + p.time_s, 6)
         return times
 
-    def _fill_exec_stats(self, stats: PlanStats, rec: _Recorder) -> None:
+    def _fill_exec_stats(self, stats: PlanStats,
+                         rec: trace.Recorder) -> None:
         executed = set()
         for label, s, a, b in rec.records:
             executed.add(label)

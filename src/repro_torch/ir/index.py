@@ -15,6 +15,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..core import trace
 from ..core.frame import ColFrame
 from ..core.pipeline import Indexer, Transformer, add_ranks
 from .tokenizer import WordTokenizer
@@ -178,17 +179,20 @@ class BM25Retriever(Transformer):
         return nz, acc[nz]
 
     def transform(self, inp: ColFrame) -> ColFrame:
-        qids, docnos, scores, ranks, queries = [], [], [], [], []
-        for qid, query in zip(inp["qid"].tolist(), inp["query"].tolist()):
-            ids, sc = self.score_query(query)
-            qids.extend([qid] * len(ids))
-            queries.extend([query] * len(ids))
-            docnos.extend(self.index.docnos[i] for i in ids)
-            scores.extend(sc.tolist())
-            ranks.extend(range(len(ids)))
-        return ColFrame({"qid": qids, "query": queries, "docno": docnos,
-                         "score": np.asarray(scores, dtype=np.float64),
-                         "rank": np.asarray(ranks, dtype=np.int64)})
+        with trace.span("bm25.retrieve", topics=len(inp)):
+            qids, docnos, scores, ranks, queries = [], [], [], [], []
+            for qid, query in zip(inp["qid"].tolist(),
+                                  inp["query"].tolist()):
+                ids, sc = self.score_query(query)
+                qids.extend([qid] * len(ids))
+                queries.extend([query] * len(ids))
+                docnos.extend(self.index.docnos[i] for i in ids)
+                scores.extend(sc.tolist())
+                ranks.extend(range(len(ids)))
+            return ColFrame({"qid": qids, "query": queries,
+                             "docno": docnos,
+                             "score": np.asarray(scores, dtype=np.float64),
+                             "rank": np.asarray(ranks, dtype=np.int64)})
 
 
 class TextLoader(Transformer):
@@ -206,10 +210,11 @@ class TextLoader(Transformer):
         self.name = name
 
     def transform(self, inp: ColFrame) -> ColFrame:
-        texts = np.empty(len(inp), dtype=object)
-        texts[:] = [self.text_map.get(str(d), "") for d in
-                    inp["docno"].tolist()]
-        return inp.assign(text=texts)
+        with trace.span("text_loader", rows=len(inp)):
+            texts = np.empty(len(inp), dtype=object)
+            texts[:] = [self.text_map.get(str(d), "") for d in
+                        inp["docno"].tolist()]
+            return inp.assign(text=texts)
 
     def signature(self):
         return ("TextLoader", self.name, len(self.text_map))

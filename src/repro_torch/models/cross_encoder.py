@@ -33,6 +33,7 @@ from torch import nn
 
 from ..caching import compile_cache
 from ..caching.bucketing import BucketedRunner
+from ..core import trace
 from ..core.frame import ColFrame
 from ..core.pipeline import Transformer, add_ranks
 from ..ir.tokenizer import HashTokenizer
@@ -167,12 +168,16 @@ class _EncoderBase(Transformer):
                                       max_bucket=1024)
 
     def _score_tokens(self, tokens: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
-            t = torch.from_numpy(tokens).to(self.encoder.device)
-            out = compile_cache.default_compile_cache.call(
-                f"{type(self).__name__}:{self.cfg.name}", self._encode, t,
-                weight_source=(self.cfg,) + self.encoder.weight_source)
-            return out.cpu().numpy()
+        with trace.span("encoder.call", rows=len(tokens)), \
+                torch.inference_mode():
+            with trace.span("encoder.h2d"):
+                t = torch.from_numpy(tokens).to(self.encoder.device)
+            with trace.span("encoder.replay"):
+                out = compile_cache.default_compile_cache.call(
+                    f"{type(self).__name__}:{self.cfg.name}", self._encode,
+                    t, weight_source=(self.cfg,) + self.encoder.weight_source)
+            with trace.span("encoder.sync"):    # the host waits on the card
+                return out.cpu().numpy()
 
     def _encode(self, tokens: torch.Tensor) -> torch.Tensor:
         return encoder_score(self.encoder.tree, tokens, self.cfg)
@@ -183,9 +188,10 @@ class _EncoderBase(Transformer):
         return ("weights",) + self.encoder.weight_source
 
     def _score_pairs(self, queries, texts) -> np.ndarray:
-        toks = np.stack([
-            self.tokenizer.encode_pair(q, t, self.cfg.max_len)
-            for q, t in zip(queries, texts)])
+        with trace.span("encoder.tokenize", pairs=len(queries)):
+            toks = np.stack([
+                self.tokenizer.encode_pair(q, t, self.cfg.max_len)
+                for q, t in zip(queries, texts)])
         self.invocations += len(queries)
         return np.asarray(self._runner(toks), dtype=np.float64)
 

@@ -54,7 +54,9 @@ class ServiceStats:
     :class:`~repro_torch.core.executor.Reservoir`
     (capacity ``reservoir_capacity``), so a long-lived service holds a
     constant amount of memory while p50/p99 stay stable estimates of
-    the whole request stream.  Hit/miss totals are accumulated from
+    the whole request stream.  They run from ``submit``: the service
+    cannot know when a client meant to send a request, so an open-loop
+    client reports its own lateness on top.  Hit/miss totals are accumulated from
     per-call cache counts (``CacheTransformer.pop_call_counts``), which
     stay correct when several threads or services share one cache.
     """
@@ -81,12 +83,6 @@ class ServiceStats:
             self.cache_misses += int(misses)
 
     # -- views ---------------------------------------------------------------
-    @property
-    def latencies_ms(self) -> List[float]:
-        """Snapshot of the latency reservoir (compatibility view of the
-        old unbounded list)."""
-        return self.latencies.snapshot()
-
     @property
     def hit_rate(self) -> float:
         lookups = self.cache_hits + self.cache_misses

@@ -134,6 +134,7 @@ def _imported_roots(path):
                          + [ROOT / "chip_smoke.py",
                             ROOT / "tools" / "torch_profile_main_path.py",
                             ROOT / "tools" / "torch_lm_bf16_drift.py",
+                            ROOT / "tools" / "torch_trace_cost.py",
                             ROOT / "examples" / "train_reranker_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
