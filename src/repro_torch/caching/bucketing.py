@@ -11,6 +11,10 @@ miss batches up to power-of-two buckets (with a floor), so the number of
 distinct compiled shapes is O(log max_batch) — the standard serving
 trick (cf. bucketed batching in fairseq/T5), applied here to *cache-miss
 re-execution*, which is new relative to the paper.
+
+The port also buckets the sequence: ``seq_bucket`` rounds a call's
+longest row up to a multiple of ``SEQ_STEP`` columns, so an encoder
+computes the columns its pairs fill and not the tokenizer's ``max_len``.
 """
 from __future__ import annotations
 
@@ -21,7 +25,12 @@ import numpy as np
 
 from ..core import trace
 
-__all__ = ["bucket_size", "pad_batch", "BucketedRunner"]
+__all__ = ["bucket_size", "seq_bucket", "SEQ_STEP", "pad_batch",
+           "BucketedRunner"]
+
+#: the columns a sequence bucket is a multiple of: at 16 a scorer
+#: captures twice the graphs for under a tenth more of the saving
+SEQ_STEP = 32
 
 
 def bucket_size(n: int, *, floor: int = 8, ceiling: int = 1 << 20) -> int:
@@ -29,6 +38,12 @@ def bucket_size(n: int, *, floor: int = 8, ceiling: int = 1 << 20) -> int:
     if n <= 0:
         return floor
     return min(max(floor, 1 << (int(n - 1).bit_length())), ceiling)
+
+
+def seq_bucket(longest: int, max_len: int) -> int:
+    """Smallest multiple of ``SEQ_STEP`` ≥ longest (≥ SEQ_STEP), at most
+    max_len."""
+    return min(max_len, max(SEQ_STEP, -(-int(longest) // SEQ_STEP) * SEQ_STEP))
 
 
 def pad_batch(arr: np.ndarray, target: int) -> np.ndarray:

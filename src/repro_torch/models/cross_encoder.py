@@ -9,16 +9,26 @@ declares ``cacheable=False`` (paper §5).
 Both wrap a small bidirectional encoder over hash-tokenized text.  The
 weights live in an ``Encoder`` module; the forward pass is plain
 functions on tensors.  Attention is a dense masked softmax in plain
-PyTorch, as the reference computes it outside any kernel.  Miss batches
-run through ``BucketedRunner``'s power-of-two buckets, and each bucket
-through the process-wide ``CompileCache``: one CUDA graph per (scorer
-class and config name, bucket, device, config and weight source), so a
-bucket's dozens of launches become one replay.  Numerics that must
-match the reference:
+PyTorch, as the reference computes it outside any kernel.  A scorer
+call's tokens are cut to its sequence bucket (``seq_bucket``: the
+longest pair rounded up to 32 columns, at most ``max_len``), its miss
+batches run through ``BucketedRunner``'s power-of-two row buckets, and
+each block through the process-wide ``CompileCache``: one CUDA graph per
+(scorer class and config name, row and sequence bucket, device, config
+and weight source), so a block's dozens of launches become one replay.
+Numerics that must match the reference:
 
 * GELU is the tanh approximation (``jax.nn.gelu``'s default);
 * token ids are clamped to ``[0, V-1]`` (``jnp.take(mode="clip")``);
 * the key-padding bias is ``-1e30``, added in fp32 before the softmax.
+
+Deliberate differences from the reference:
+
+* each call is computed at its own **sequence bucket**, the reference's
+  at ``max_len``.  The columns cut are padding of every row: a padded
+  key's softmax weight is exactly 0 (its bias is ``-1e30``), mean
+  pooling divides by the unpadded count, and positions are ``pos[:S]``,
+  so no score depends on them.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..caching import compile_cache
-from ..caching.bucketing import BucketedRunner
+from ..caching.bucketing import BucketedRunner, seq_bucket
 from ..core import trace
 from ..core.frame import ColFrame
 from ..core.pipeline import Transformer, add_ranks
@@ -118,7 +128,8 @@ def encoder_pooled(params: Dict, tokens: torch.Tensor,
 
 def encoder_score(params: Dict, tokens: torch.Tensor,
                   cfg: EncoderConfig) -> torch.Tensor:
-    """tokens [B, max_len] int -> scores [B] (bidirectional encoder)."""
+    """tokens [B, S] int (S ≤ max_len) -> scores [B] (bidirectional
+    encoder)."""
     pooled = encoder_pooled(params, tokens, cfg)
     return torch.einsum("bd,do->bo", pooled, params["w_score"])[:, 0]
 
@@ -168,7 +179,8 @@ class _EncoderBase(Transformer):
                                       max_bucket=1024)
 
     def _score_tokens(self, tokens: np.ndarray) -> np.ndarray:
-        with trace.span("encoder.call", rows=len(tokens)), \
+        with trace.span("encoder.call", rows=len(tokens),
+                        seq=tokens.shape[1]), \
                 torch.inference_mode():
             with trace.span("encoder.h2d"):
                 t = torch.from_numpy(tokens).to(self.encoder.device)
@@ -192,6 +204,9 @@ class _EncoderBase(Transformer):
             toks = np.stack([
                 self.tokenizer.encode_pair(q, t, self.cfg.max_len)
                 for q, t in zip(queries, texts)])
+        seq = seq_bucket(np.count_nonzero(toks, axis=1).max(),
+                         self.cfg.max_len)
+        toks = np.ascontiguousarray(toks[:, :seq])
         self.invocations += len(queries)
         return np.asarray(self._runner(toks), dtype=np.float64)
 

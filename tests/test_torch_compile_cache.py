@@ -20,6 +20,7 @@ import repro_torch.caching.compile_cache as tcc
 import repro_torch.ir as tir
 import repro_torch.models.cross_encoder as tce
 from repro_torch.caching import CompileCache, pad_batch, signature_of_args
+from repro_torch.caching.bucketing import seq_bucket
 
 torch.set_num_threads(1)
 
@@ -81,10 +82,13 @@ def test_the_key_holds_literals_and_structure():
 
 
 def _eager(scorer):
-    """The scorer's encoder called eagerly on the bucket the runner pads
-    PAIRS to (8 rows: the same shapes, so the same sums)."""
-    toks = pad_batch(np.stack([scorer.tokenizer.encode_pair(
-        q, t, scorer.cfg.max_len) for q, t in PAIRS]), 8)
+    """The scorer's encoder called eagerly on the block the runner gets
+    for PAIRS (8 rows, the call's sequence bucket of columns: the same
+    shapes, so the same sums)."""
+    toks = np.stack([scorer.tokenizer.encode_pair(
+        q, t, scorer.cfg.max_len) for q, t in PAIRS])
+    seq = seq_bucket(np.count_nonzero(toks, axis=1).max(), scorer.cfg.max_len)
+    toks = pad_batch(np.ascontiguousarray(toks[:, :seq]), 8)
     with torch.inference_mode():
         return tce.encoder_score(scorer.encoder.tree, torch.from_numpy(toks),
                                  scorer.cfg).double().numpy()

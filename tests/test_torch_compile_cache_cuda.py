@@ -16,6 +16,7 @@ import torch
 import repro_torch.caching.compile_cache as tcc
 import repro_torch.models.cross_encoder as tce
 from repro_torch.caching import CompileCache, pad_batch
+from repro_torch.caching.bucketing import seq_bucket
 
 torch.set_num_threads(1)
 
@@ -40,8 +41,12 @@ def _pairs(n, seed=0):
 
 
 def _eager(scorer, qs, ts, bucket):
-    toks = pad_batch(np.stack([scorer.tokenizer.encode_pair(
-        q, t, scorer.cfg.max_len) for q, t in zip(qs, ts)]), bucket)
+    """The encoder called eagerly on the block the runner gets: ``bucket``
+    rows and the call's sequence bucket of columns."""
+    toks = np.stack([scorer.tokenizer.encode_pair(
+        q, t, scorer.cfg.max_len) for q, t in zip(qs, ts)])
+    seq = seq_bucket(np.count_nonzero(toks, axis=1).max(), scorer.cfg.max_len)
+    toks = pad_batch(np.ascontiguousarray(toks[:, :seq]), bucket)
     with torch.inference_mode():
         out = tce.encoder_score(scorer.encoder.tree,
                                 torch.from_numpy(toks).cuda(), scorer.cfg)

@@ -225,7 +225,8 @@ def test_tokenize_pairs_equal_invocations(recording, toy):
     assert pairs == mono.invocations + duo.invocations > 0
     calls = rec.named("encoder.call")
     assert rec.counters["encoder.tokens_computed"] == \
-        sum(c.attrs["rows"] for c in calls) * cfg.max_len
+        sum(c.attrs["rows"] * c.attrs["seq"] for c in calls)
+    assert all(c.attrs["seq"] <= cfg.max_len for c in calls)
     assert 0 < rec.counters["encoder.tokens_useful"] \
         <= rec.counters["encoder.tokens_computed"]
     assert sum(mono._runner.shapes_issued.values()) \
