@@ -84,6 +84,10 @@ def requests_per_batch(m):
                   m.counters.get("batches", 0))
 
 
+def captures_in_window(m):
+    return m.counters.get("compiles_in_window")
+
+
 def encoder_roofline(m):
     if m.device is None or m.spans is None:
         return None

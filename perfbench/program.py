@@ -19,6 +19,7 @@ workers).
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import defaultdict
@@ -29,7 +30,7 @@ import torch
 
 from repro_torch.caching import ScorerCache
 from repro_torch.caching import compile_cache
-from repro_torch.caching.bucketing import BucketedRunner
+from repro_torch.caching.bucketing import BucketedRunner, seq_bucket
 from repro_torch.caching.provenance import set_digest_device
 from repro_torch.core import Experiment
 from repro_torch.core.frame import ColFrame
@@ -46,7 +47,8 @@ from .metrics.peaks import FLOAT32_FLOPS, HBM_BYTES_PER_S
 
 __all__ = ["Probe", "Spans", "use_device", "encoder_config", "build_index", "mono",
            "duo", "scorer_cache", "text_loader", "table2_systems",
-           "experiment", "service", "compile_misses", "frame_rows",
+           "experiment", "service", "compile_misses", "rows_issued",
+           "pair_length_bounds", "warm_shapes", "frame_rows",
            "ENCODER_RANGE"]
 
 #: the span of every encoder call
@@ -125,6 +127,109 @@ def service(index, loader, scorer, depth: int, **knobs) -> PipelineService:
 
 def compile_misses() -> int:
     return compile_cache.default_compile_cache.stats.compile_misses
+
+
+def rows_issued(scorer) -> List[int]:
+    """The row buckets the scorer's calls have issued so far."""
+    return sorted(scorer._runner.shapes_issued)
+
+
+#: the chance, at most, that a Mono call of the window lands in a
+#: sequence bucket below those warmed at its row bucket
+MISS_CHANCE = 1e-9
+
+
+def _pair_tokens(scorer, query: str, text: str) -> int:
+    return int(np.count_nonzero(
+        scorer.tokenizer.encode_pair(query, text, scorer.cfg.max_len)))
+
+
+def _by_words(texts: List[str]) -> np.ndarray:
+    """Passages in order of their words (``split``), fewest first."""
+    words = np.fromiter((len(t.split()) for t in texts), dtype=np.int64,
+                        count=len(texts))
+    return np.argsort(words, kind="stable")
+
+
+def pair_length_bounds(scorer, queries: List[str], texts: List[str],
+                       order: Optional[np.ndarray] = None
+                       ) -> Tuple[int, int]:
+    """(fewest, most) tokens of a pair the scorer can be sent from these
+    queries and passages, cut at ``max_len`` as ``encode_pair`` cuts:
+    Mono's ``[CLS] query [SEP] passage`` over the shortest and the
+    longest passage, Duo's ``[CLS] query [SEP] passage_i [VS] passage_j``
+    over the two shortest and the two longest.  Passages are ranked by
+    their words (``order``, else ``_by_words``); the scorer's tokenizer
+    counts the few that bound the pairs."""
+    k = 2 if isinstance(scorer, DuoScorer) else 1
+    order = _by_words(texts) if order is None else order
+    by_words = sorted(queries, key=lambda q: len(q.split()))
+    join = " [VS] ".join          # DuoScorer's layout of a pair's text
+    return (_pair_tokens(scorer, by_words[0],
+                         join(texts[i] for i in order[:k])),
+            _pair_tokens(scorer, by_words[-1],
+                         join(texts[i] for i in order[-k:])))
+
+
+def _fewest_at(scorer, rows: int, query: str, texts: List[str],
+               order: np.ndarray, lo: int) -> int:
+    """The fewest tokens of the longest pair of a call padded to ``rows``,
+    but for ``MISS_CHANCE``.  A Mono call padded to more than the
+    runner's floor holds at least ``rows // 2 + 1`` pairs, each with a
+    passage of its own; taken as draws from the corpus, all ``m`` have
+    fewer words than the passage at its ``MISS_CHANCE ** (1 / m)``
+    quantile with at most that chance.  Duo's pairs share a call's few
+    passages, and a call at the floor may hold one pair: those keep the
+    shortest pair, ``lo``."""
+    if isinstance(scorer, DuoScorer) or rows <= scorer._runner.floor:
+        return lo
+    q = MISS_CHANCE ** (1.0 / (rows // 2 + 1))
+    return _pair_tokens(scorer, query, texts[order[int(q * len(texts))]])
+
+
+def warm_shapes(scorer, row_buckets: List[int], queries: List[str],
+                texts: List[str]) -> List[Tuple[int, int]]:
+    """Captures, before the window, the graph of every (row bucket,
+    sequence bucket) the scorer's window calls can land in: one call
+    through the scorer's own ``_score_pairs`` for each power-of-two row
+    bucket ``r``, of ``r // 2 + 1`` pairs (the fewest its runner pads to
+    ``r``), at each sequence bucket from that of ``_fewest_at`` to that
+    of the longest pair (``pair_length_bounds``).  A call's pairs are one
+    query and a text of the corpus's words, as long as the bucket's
+    longest length within the bounds.  Largest first, handing the
+    allocator's free blocks back after each capture on a card.  Returns
+    the (rows, columns) called."""
+    order = _by_words(texts)
+    lo, hi = pair_length_bounds(scorer, queries, texts, order)
+    query = min(queries, key=lambda q: len(q.split()))
+    head = _pair_tokens(scorer, query, "")
+    fill = texts[order[-1]].split()
+    longest = {}
+    for n in range(lo, hi + 1):
+        longest[seq_bucket(n, scorer.cfg.max_len)] = n
+    text_at = {}
+    for seq, n in longest.items():
+        text = " ".join(itertools.islice(itertools.cycle(fill), n - head))
+        got = _pair_tokens(scorer, query, text)
+        if got != n:
+            raise RuntimeError(f"a warm pair of {n} tokens came out {got}")
+        text_at[seq] = text
+    cuda = scorer.encoder.device.type == "cuda"
+    shapes = []
+    for rows in sorted(row_buckets, reverse=True):
+        pairs = rows // 2 + 1
+        low = seq_bucket(_fewest_at(scorer, rows, query, texts, order, lo),
+                         scorer.cfg.max_len)
+        for seq, text in sorted(text_at.items(), reverse=True):
+            if seq < low:
+                continue
+            scorer._score_pairs([query] * pairs, [text] * pairs)
+            shapes.append((rows, seq))
+            if cuda:
+                # each CUDA-graph capture warms up on a stream of its own,
+                # whose freed blocks no later stream reuses: hand them back
+                torch.cuda.empty_cache()
+    return shapes
 
 
 def frame_rows(frame) -> Dict[str, List]:

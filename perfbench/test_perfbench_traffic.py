@@ -1,6 +1,7 @@
 """The traffic and the data the harness finds by name: the open-loop
 schedule comes from the seed and latencies run from the due time; every
-cell's configuration, traffic mix, limits and metric readers load."""
+cell's configuration, traffic mix, limits and metric readers load; the
+set-ups capture every shape the window can issue before it starts."""
 import json
 import threading
 import time
@@ -9,10 +10,14 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
-from perfbench import harness
+from perfbench import harness, program
+from perfbench.conftest import TINY_MODEL, run_tiny, tiny_cell
 from perfbench.traffic import open_loop
 from perfbench.traffic.corpus import make_corpus
+from perfbench.weights import draw, to_numpy
+from repro_torch.caching.bucketing import seq_bucket
 
 SPEC = json.loads((Path(harness.ROOT) / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in SPEC["workloads"]]
@@ -94,6 +99,8 @@ def test_cell_loads_by_name(cell):
 
 
 def test_every_metric_has_a_reader_and_every_config_a_file():
+    names = {m["name"] for m in SPEC["end_to_end"] + SPEC["per_layer"]}
+    assert {"captures_in_window.serve", "captures_in_window.exp"} <= names
     for m in SPEC["end_to_end"] + SPEC["per_layer"]:
         assert (Path(harness.PACKAGE) / "metrics"
                 / f"{m['name']}.py").is_file()
@@ -101,3 +108,129 @@ def test_every_metric_has_a_reader_and_every_config_a_file():
         cfg = json.loads((Path(harness.ROOT) / c["file"]).read_text())
         assert cfg["source"] == c["source"]
         assert set(c["reduced"]) <= set(cfg["reduced"])
+
+
+#: pairs long enough to land in several sequence buckets
+WIDE = dict(TINY_MODEL, max_position_embeddings=256)
+
+
+@pytest.fixture
+def graphs(monkeypatch):
+    """A CompileCache of the test's own: no earlier test's entry hides a
+    capture."""
+    import repro_torch.caching.compile_cache as cc
+    fresh = cc.CompileCache()
+    monkeypatch.setattr(cc, "default_compile_cache", fresh)
+    return fresh
+
+
+@pytest.fixture(scope="module")
+def small():
+    corpus = make_corpus("s", n_docs=600, n_topics=30, seed=7)
+    gen = torch.Generator("cpu").manual_seed(7)
+    cfg = dict(WIDE, torch_dtype="float32")
+    scorers = {"mono": program.mono(cfg, to_numpy(draw(cfg, gen)), "cpu"),
+               "duo": program.duo(cfg, to_numpy(draw(cfg, gen)), "cpu", 10)}
+    return corpus, scorers
+
+
+def _count(scorer, query, text):
+    return int(np.count_nonzero(scorer.tokenizer.encode_pair(
+        query, text, scorer.cfg.max_len)))
+
+
+@pytest.mark.parametrize("kind", ["mono", "duo"])
+def test_pair_length_bounds_are_the_corpus_extremes(small, kind):
+    corpus, scorers = small
+    scorer = scorers[kind]
+    q = corpus.queries[0]      # every query has the mix's three words
+    alone = sorted(corpus.texts, key=lambda t: _count(scorer, q, t))
+    k = 2 if kind == "duo" else 1
+    lo = _count(scorer, q, " [VS] ".join(alone[:k]))
+    hi = _count(scorer, q, " [VS] ".join(alone[-k:]))
+    assert program.pair_length_bounds(scorer, corpus.queries,
+                                      corpus.texts) == (lo, hi)
+    assert lo < hi <= scorer.cfg.max_len
+
+
+def _text_in_bucket(scorer, query, texts, seq):
+    """A text of the corpus, Duo's two passages for Duo, whose pair with
+    ``query`` lands in sequence bucket ``seq``."""
+    duo = isinstance(scorer, program.DuoScorer)
+    cands = (a + " [VS] " + b for a in texts for b in texts[:50]) if duo \
+        else iter(texts)
+    return next(t for t in cands if seq_bucket(
+        _count(scorer, query, t), scorer.cfg.max_len) == seq)
+
+
+@pytest.mark.parametrize("kind", ["mono", "duo"])
+def test_warm_shapes_leaves_no_capture_to_the_window(small, graphs, kind):
+    corpus, scorers = small
+    scorer = scorers[kind]
+    lo, hi = program.pair_length_bounds(scorer, corpus.queries,
+                                        corpus.texts)
+    seqs = {seq_bucket(n, scorer.cfg.max_len) for n in range(lo, hi + 1)}
+    assert len(seqs) >= 2
+    rows = [8, 32]
+    shapes = program.warm_shapes(scorer, rows, corpus.queries, corpus.texts)
+    want = {(r, s) for r in rows for s in seqs}
+    assert set(shapes) == want
+    # an entry's key: (name, (abstract leaves, structure), device,
+    # weights); its first leaf is the tokens, ("arr", shape, dtype)
+    assert {key[1][0][0][1] for key, _ in graphs.entries()} == want
+    misses = program.compile_misses()
+    q = corpus.queries[3]
+    for r, s in sorted(want):
+        text = _text_in_bucket(scorer, q, corpus.texts, s)
+        scorer._score_pairs([q] * (r - 3), [text] * (r - 3))
+        assert program.compile_misses() == misses, (r, s)
+
+
+def test_warm_shapes_leaves_out_what_a_mono_call_cannot_reach(small,
+                                                              graphs):
+    """A Mono call padded to 128 rows holds 65 pairs or more, so its
+    longest pair does not land in the shortest pair's bucket: there
+    ``warm_shapes`` leaves that bucket out, and keeps it at the runner's
+    floor, where a call may hold one pair.  Calls of 65 passages drawn
+    from the corpus all land in a bucket warmed at 128."""
+    corpus, scorers = small
+    mono = scorers["mono"]
+    lo, hi = program.pair_length_bounds(mono, corpus.queries, corpus.texts)
+    seqs = sorted({seq_bucket(n, mono.cfg.max_len)
+                   for n in range(lo, hi + 1)})
+    shapes = program.warm_shapes(mono, [8, 128], corpus.queries,
+                                 corpus.texts)
+    assert {s for r, s in shapes if r == 8} == set(seqs)
+    at128 = {s for r, s in shapes if r == 128}
+    assert seqs[0] not in at128 and seqs[-1] in at128
+    q = min(corpus.queries, key=lambda x: len(x.split()))
+    tokens = np.array([_count(mono, q, t) for t in corpus.texts])
+    draws = np.random.default_rng(5).integers(0, len(tokens), (2000, 65))
+    assert {seq_bucket(n, mono.cfg.max_len)
+            for n in tokens[draws].max(axis=1)} <= at128
+
+
+@pytest.mark.parametrize("cell, traffic", [
+    ("table2-cold.msv1-minilm-l6", {"cuts": [3, 6]}),
+    ("serve-rerank100.msv1-electra-base", {"depth": 3})])
+def test_no_capture_lands_in_the_window(graphs, cell, traffic):
+    """A tiny cell whose lists all fill their cut, as the full cells' do,
+    and whose calls hold a few pairs of passages of 10 to 120 words, so
+    that the window reaches sequence buckets the warm traffic did not
+    (without ``warm_shapes`` this seed's runs capture 4 and 2 graphs
+    there): its run captures none in the window, and its per-layer
+    reader says so."""
+    shape = dict(harness.load_cell(cell).config["corpus_shape"],
+                 doc_len=[10, 120])
+    c = tiny_cell(cell, model=dict(WIDE, corpus_shape=shape))
+    c.traffic.update(traffic)
+    out = run_tiny(c, trace=True)
+    assert out["correct"], out["checks"]
+    n = out["counters"]
+    if "topics" in n:
+        assert n["mono_pairs"] == n["topics"] * max(traffic["cuts"])
+    else:
+        assert n["pairs_encoded"] == n["requests"] * traffic["depth"]
+    assert n["compiles_in_window"] == 0
+    name = "captures_in_window." + ("exp" if "topics" in n else "serve")
+    assert out["metrics"][name]["value"] == 0

@@ -16,6 +16,9 @@ Set-up builds the corpus, the weights, the index and the scorer inside a
 ``PipelineService`` and warms each batch shape the traffic can make by
 serving frames of ``warm_batches`` queries kept out of the window,
 largest first, handing the allocator's free blocks back after each.
+At each row bucket those frames issued it then captures every sequence
+bucket a call there can reach (``program.warm_shapes``), so that no
+graph is captured inside the window (``compiles_in_window``).
 """
 from __future__ import annotations
 
@@ -65,6 +68,11 @@ def setup(run) -> Dict:
             # each CUDA-graph capture warms up on a stream of its own,
             # whose freed blocks no later stream reuses: hand them back
             torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shapes = program.warm_shapes(mono, program.rows_issued(mono),
+                                 corpus.queries, corpus.texts)
+    print(f"[open_loop] warmed (rows, columns) {shapes} in "
+          f"{time.perf_counter() - t0:.3f} s", file=sys.stderr)
     order = np.random.default_rng([run.seed, 1]).permutation(p["topic_pool"])
     return dict(corpus=corpus, weights=weights, service=svc, order=order,
                 mono=mono)

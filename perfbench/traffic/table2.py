@@ -11,9 +11,14 @@ closes finishes and counts, and so does its time.
 Set-up builds the corpus, the weights, the index and both scorers, and
 warms every shape the window uses by one Experiment over topics kept
 out of the window, through a ScorerCache of its own that it then drops.
+At each row bucket that Experiment issued, each scorer then captures
+every sequence bucket a call there can reach
+(``program.warm_shapes``, through the scorers and not the cache), so
+that no graph is captured inside the window (``compiles_in_window``).
 """
 from __future__ import annotations
 
+import sys
 import time
 from typing import Dict
 
@@ -50,6 +55,13 @@ def setup(run) -> Dict:
         names, corpus, [corpus.qids[i] for i in warm],
         [corpus.queries[i] for i in warm], MEASURES)
     warm_cache.close()
+    t0 = time.perf_counter()
+    shapes = [program.warm_shapes(scorer, program.rows_issued(scorer),
+                                  corpus.queries, corpus.texts)
+              for scorer in (mono, duo)]
+    print(f"[table2] warmed (rows, columns) of Mono {shapes[0]} and Duo "
+          f"{shapes[1]} in {time.perf_counter() - t0:.3f} s",
+          file=sys.stderr)
 
     cache = program.scorer_cache(mono)
     order = np.random.default_rng([run.seed, 1]).permutation(pool)
